@@ -1,6 +1,6 @@
-"""breeze_tpu: a TPU-native atmospheric LES / mesoscale framework.
+"""breeze_tpu: an atmospheric LES / mesoscale framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of the
+A from-scratch JAX/XLA re-design with the capabilities of the
 reference Breeze.jl (NumericalEarth/Breeze.jl): anelastic and compressible
 moist dynamical cores, moist thermodynamics, microphysics, LES closures,
 surface physics, and distributed (device-mesh) execution.

@@ -1,12 +1,12 @@
 """Flux-form advection schemes: Centered, UpwindBiased, WENO.
 
-TPU-native equivalent of the reference's Oceananigans advection substrate
+Equivalent of the reference's Oceananigans advection substrate
 (``Centered``, ``UpwindBiased``, ``WENO(order=5)``; reference
 ``src/Breeze.jl:209``, ``src/Advection.jl``).  Reconstruction is expressed
 as shifted-window arithmetic over halo-padded arrays; XLA fuses the entire
 flux-divergence computation into one loop.  Both upwind branches are computed
-and selected with ``jnp.where`` — on the VPU this is cheaper than divergent
-control flow, and the Pallas WENO kernel can specialize later.
+and selected with ``jnp.where`` — cheaper in fused vector code than divergent
+control flow.
 
 Interface/staggering conventions follow :mod:`breeze_tpu.ops`.  All flux and
 reconstruction arrays are **interior-sized** (``n`` entries along the flux
@@ -57,7 +57,7 @@ class UpwindBiased:
 @dataclasses.dataclass(frozen=True)
 class WENO:
     """WENO reconstruction; ``bounds_preserving`` clips each interface value
-    to the hull of its adjacent cells (TPU analogue of the reference's
+    to the hull of its adjacent cells (Analogue of the reference's
     bounds-preserving WENO route, ``src/Advection.jl:42-47``): under the CFL
     this keeps tracers within their initial bounds (no new extrema), at the
     cost of locally reducing to low order at clipped interfaces."""
@@ -77,9 +77,7 @@ class FluxFormAdvection:
     re-exported at ``src/Breeze.jl:209`` from Oceananigans): e.g. WENO(5)
     horizontally with Centered(2) vertically.  Each flux direction's
     interface reconstruction uses its own scheme; :func:`reconstruct`
-    resolves the per-axis scheme at the call site.  Falls back to the jnp
-    path (the fused Pallas kernels cover the uniform-WENO5 canonical
-    config only)."""
+    resolves the per-axis scheme at the call site."""
 
     x: object = dataclasses.field(default_factory=lambda: WENO(5))
     y: object = dataclasses.field(default_factory=lambda: WENO(5))
@@ -104,7 +102,7 @@ class FluxFormAdvection:
 class AdaptiveImplicitVerticalAdvection:
     """Adaptive explicit/implicit vertical-advection split (AIVA).
 
-    TPU analogue of reference ``implicit_vertical_advection.jl:78-230``
+    Analogue of reference ``implicit_vertical_advection.jl:78-230``
     (Oceananigans ``AdaptiveImplicitVerticalAdvection``): wherever the local
     vertical advective CFL α = |w̄|Δt/Δz exceeds ``cfl``, the explicit
     vertical flux is scaled by s = cfl/α and the remainder velocity
@@ -212,7 +210,7 @@ def _weno5(g, eps):
 
     # Common-denominator weights: aᵢ ∝ dᵢ/(bᵢ+ε)² with the Πⱼ(bⱼ+ε)²
     # factor cancelled — two divides instead of four (divides dominate the
-    # VPU cost of the weight stage on TPU); ratios are mathematically
+    # arithmetic cost of the weight stage); ratios are mathematically
     # identical to the classic form.  The βs are first normalized by their
     # max so the pair products cannot overflow f32 (large-magnitude fields
     # like number concentrations reach β ~ 1e16, whose raw pair products
@@ -313,7 +311,7 @@ def reconstruct(scheme, q_pad: jax.Array, upwind_sign: jax.Array | None,
     # Stencil-select upwinding: pick the upwind cell for each offset with a
     # cheap select, then evaluate the biased formula ONCE — half the
     # reconstruction arithmetic and intermediates of the compute-both-
-    # branches approach (the VPU win that makes jnp-level WENO competitive).
+    # branches approach.
     up = upwind_sign >= 0
 
     def g(o):
@@ -426,7 +424,7 @@ def div_rho_u_c(so: StencilOps, scheme, rho_pad, u_pad, v_pad, w_pad, c_pad,
                 z_flux_scale=None, z_spacing=None, face_fractions=None):
     """∇·(ρ u c) at cell centers — the density-weighted tracer flux divergence.
 
-    TPU analogue of reference ``div_ρUc`` (``src/Advection.jl:30-37``):
+    Analogue of reference ``div_ρUc`` (``src/Advection.jl:30-37``):
     ``ℑ(ρ)`` at the face times the advective tracer flux, differenced.
     ``c`` is the *specific* (per-mass) quantity.  ``z_flux_scale``
     (interior z-face shape) multiplies the vertical flux — the AIVA
@@ -473,7 +471,7 @@ def momentum_flux_divergence(so: StencilOps, scheme,
                              z_scales=None, z_spacings=None):
     """Flux-form ∇·(ρU ⊗ u) for all three momentum components.
 
-    TPU analogue of reference ``div_𝐯u/v/w`` usage in
+    Analogue of reference ``div_𝐯u/v/w`` usage in
     ``dynamics_kernel_functions.jl:54-62``: the advecting flux is the
     *momentum* (ρu, ρv, ρw); the advected quantity is the *velocity*.
     Advecting fluxes are interpolated to the advected component's interface

@@ -1,6 +1,6 @@
 """Diagnostic fields: potential temperature flavors, humidity, energy, means.
 
-TPU-native equivalent of reference ``src/AtmosphereModels/Diagnostics/``
+Equivalent of reference ``src/AtmosphereModels/Diagnostics/``
 (potential temperatures ``potential_temperatures.jl:12-616``,
 ``SaturationSpecificHumidity`` :58, ``DewpointTemperature`` :81,
 ``StaticEnergy`` :72, ``azimuthal_mean`` :36-92) and
@@ -205,3 +205,25 @@ def cfl_number(model, state, dt: float) -> float:
     from .simulation import cell_advection_timescale
 
     return dt / cell_advection_timescale(model, state)
+
+
+def divergence_residual(model, state) -> float:
+    """Residual of the anelastic constraint ∇·(ρu) = 0 after a projection.
+
+    ``max|∇·(ρu)|`` over the largest single term of the divergence,
+    ``max(|ρu|/Δx, |ρv|/Δy, |ρw|/Δz_min)``: the fraction of the terms that
+    fail to cancel.  A projection that solved its Poisson problem to the
+    working precision leaves a small multiple of that precision's unit
+    roundoff (about 1e-7 in float32); a float32 matrix product taken in
+    TF32 would leave about 1e-3.
+    """
+    from . import fields as fl
+    g = model.grid
+    so = model.stencil_ops()
+    div = so.div_c(fl.pad(state.rho_u, g, fl.CCF),
+                   fl.pad(state.rho_v, g, fl.CFC),
+                   fl.pad(state.rho_w, g, fl.FCC))
+    scale = max(float(jnp.abs(state.rho_u).max()) / g.dx,
+                float(jnp.abs(state.rho_v).max()) / g.dy,
+                float(jnp.abs(state.rho_w).max()) / g.dz_min)
+    return float(jnp.abs(div).max()) / scale

@@ -1,6 +1,6 @@
 """Adiabatic (FV3 ``na_init``) initialization: spin up a balanced ρw.
 
-TPU-native equivalent of reference
+Equivalent of reference
 ``src/AtmosphereModels/adiabatic_balance.jl:44-281``
 (``balance_adiabatically!`` + ``AdiabaticBalancer`` + the stripped
 memory-sharing twin).  Analyses (ERA5/GFS) cold-start w at zero; each cycle

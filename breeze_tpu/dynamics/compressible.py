@@ -1,6 +1,6 @@
 """Compressible dynamics: prognostic density, EOS pressure, split-explicit HEVI.
 
-TPU-native re-design of reference ``src/CompressibleEquations/`` (dynamics
+Re-design of reference ``src/CompressibleEquations/`` (dynamics
 ``compressible_dynamics.jl:44-301``, acoustic substepper
 ``acoustic_substepping.jl`` — 1551 LoC of kernels — and the WS-RK3 outer
 loop ``acoustic_runge_kutta_3.jl``), following the scheme specification in
@@ -611,26 +611,10 @@ def slow_tendencies(model: CompressibleModel, state: CompressibleState,
     v_pad = fl.pad(aux.v, g, fl.CFC)
     w_pad = fl.pad(aux.w, g, fl.FCC)
 
-    # Fused Pallas WENO kernels (same TPU-default kernels as the anelastic
-    # path; here the advecting momenta are the true prognostic ρu fields).
-    from ..pallas_kernels import advection as padv
-    from ..pallas_kernels import momentum as pmom
-    use_pallas_mom = (padv.enabled()
-                      and pmom.supported(g, model.momentum_advection))
-    use_pallas_scal = padv.available(g, model.scalar_advection)
-    if use_pallas_mom or use_pallas_scal:
-        pz = lambda a, loc: padv.pad_zy(a, g, loc)
-        pzu, pzv, pzw = (pz(aux.u, fl.CCF), pz(aux.v, fl.CFC),
-                         pz(aux.w, fl.FCC))
-
-    if use_pallas_mom:
-        adv_u, adv_v, adv_w = pmom.momentum_div_pallas(
-            g, pz(state.rho_u, fl.CCF), pz(state.rho_v, fl.CFC),
-            pz(state.rho_w, fl.FCC), pzu, pzv, pzw)
-    else:
-        adv_u, adv_v, adv_w = adv.momentum_flux_divergence(
-            so, model.momentum_advection,
-            rho_u_pad, rho_v_pad, rho_w_pad, u_pad, v_pad, w_pad)
+    # Here the advecting momenta are the true prognostic ρu fields.
+    adv_u, adv_v, adv_w = adv.momentum_flux_divergence(
+        so, model.momentum_advection,
+        rho_u_pad, rho_v_pad, rho_w_pad, u_pad, v_pad, w_pad)
     cor_x, cor_y, cor_z = coriolis_terms(
         model.coriolis, so, rho_u_pad, rho_v_pad, rho_w_pad, g)
 
@@ -645,18 +629,11 @@ def slow_tendencies(model: CompressibleModel, state: CompressibleState,
     # ``acoustic_substepping.jl:746``).
     chi = (state.rho_theta / state.rho
            if model.formulation == "static_energy" else aux.theta)
-    if use_pallas_scal:
-        G_rho_theta = padv.div_rho_u_c_pallas(
-            g, pz(chi, fl.CCC), pzu, pzv, pzw,
-            pz(state.rho, fl.CCC),
-            bounds=getattr(model.scalar_advection, "bounds_preserving",
-                           False))
-    else:
-        theta_pad = fl.pad(chi, g, fl.CCC)
-        rho_pad = fl.pad(state.rho, g, fl.CCC)
-        G_rho_theta = -adv.div_rho_u_c(
-            so, model.scalar_advection, rho_pad, u_pad, v_pad, w_pad,
-            theta_pad)
+    theta_pad = fl.pad(chi, g, fl.CCC)
+    rho_pad = fl.pad(state.rho, g, fl.CCC)
+    G_rho_theta = -adv.div_rho_u_c(
+        so, model.scalar_advection, rho_pad, u_pad, v_pad, w_pad,
+        theta_pad)
 
     # Frozen horizontal PGF (p_r is z-only, so ∂x p^L ≡ ∂x(p^L − p_r)).
     p_pad = fl.pad(aux.p, g, fl.CCC)
@@ -890,10 +867,8 @@ def _open_boundary_relax_plan(model, state_L):
 
 
 def terrain_metric_fields(terrain):
-    """The eight terrain metric factors the acoustic fast loop consumes
-    (shared by the jnp substep loop AND the fused K3 terrain kernel so
-    both see IDENTICAL values): ``(1/J_c, 1/J_f, J_xf, J_yf, sx_c_zf,
-    sy_c_zf, sx_cf, sy_cf)``.
+    """The eight terrain metric factors the acoustic fast loop consumes:
+    ``(1/J_c, 1/J_f, J_xf, J_yf, sx_c_zf, sy_c_zf, sx_cf, sy_cf)``.
 
     Shard-aware wraps: under shard_map a raw jnp.roll would roll the
     LOCAL shard only (latent decomposition bug) — route through
@@ -1060,10 +1035,9 @@ def acoustic_substep_loop(model: CompressibleModel, caches: StageCaches,
     # pinned by ``test_roll_path_matches_pad_path``):
     #
     # - Padded stencils (DEFAULT): one halo-concat per field per substep,
-    #   consumers read multiple shifted windows of the same buffer.  XLA
-    #   fuses the shifted reads; v5e-measured FASTER than rolls (4.21 vs
-    #   5.03 ms/substep bf16 — each jnp.roll materializes its own copy,
-    #   so the roll form moves MORE data when ≥2 offsets share a field).
+    #   consumers read multiple shifted windows of the same buffer, which
+    #   XLA fuses; each jnp.roll would materialize its own copy, so the
+    #   roll form moves MORE data when ≥2 offsets share a field.
     # - Aligned ±1 rolls (``BREEZE_TPU_ACOUSTIC_ROLLS=1``): shard-aware
     #   wrap_roll (single-slab ppermute under shard_map) — kept for
     #   decomposition experiments where the halo-concat's full-width
@@ -1380,7 +1354,8 @@ def acoustic_rk3_step(model: CompressibleModel, state: CompressibleState,
     # fix_negative_moisture!, update_atmosphere_model_state.jl:42).
     if state.rho_qt is not None:
         from ..physics.microphysics import apply_negative_moisture_correction
-        state = apply_negative_moisture_correction(model, state)
+        with jax.named_scope("negative_moisture"):
+            state = apply_negative_moisture_correction(model, state)
 
     if getattr(model.boundary_fluxes, "filter", None) is not None:
         from ..physics.surface import update_surface_filter
@@ -1392,15 +1367,18 @@ def acoustic_rk3_step(model: CompressibleModel, state: CompressibleState,
     terrain = model.terrain
 
     for beta, (n_tau, dtau) in zip(WS_RK3_BETAS, plan):
-        aux_L = compressible_diagnose(model, state)
-        caches = stage_caches(model, state, aux_L)
-        if terrain is not None:
-            from .terrain import terrain_slow_tendencies
-            G = terrain_slow_tendencies(model, terrain, state, aux_L)
-        else:
-            G = slow_tendencies(model, state, aux_L)
-        if model.boundary_fluxes is not None:
-            G = _apply_compressible_boundary_fluxes(model, state, aux_L, G)
+        with jax.named_scope("diagnose"):
+            aux_L = compressible_diagnose(model, state)
+            caches = stage_caches(model, state, aux_L)
+        with jax.named_scope("tendencies"):
+            if terrain is not None:
+                from .terrain import terrain_slow_tendencies
+                G = terrain_slow_tendencies(model, terrain, state, aux_L)
+            else:
+                G = slow_tendencies(model, state, aux_L)
+            if model.boundary_fluxes is not None:
+                G = _apply_compressible_boundary_fluxes(model, state, aux_L,
+                                                        G)
 
         # Stage rewind: perturbations start at U^n − U^L (SK08).
         pert = Perturbations(
@@ -1412,17 +1390,6 @@ def acoustic_rk3_step(model: CompressibleModel, state: CompressibleState,
             sum_rho_u=zero, sum_rho_v=zero, sum_rho_w=zero,
         )
         ob_relax = _open_boundary_relax_plan(model, state)
-        from ..pallas_kernels import acoustic as pacoustic
-        from ..pallas_kernels.advection import enabled as _pallas_enabled
-        import os as _os
-        # The fused multi-substep K3 kernel is the DEFAULT within its
-        # envelope (v5e-verified: bitwise vs the jnp loop, 112 -> 205M
-        # pts/s compressible bf16); BREEZE_TPU_DISABLE_PALLAS_ACOUSTIC=1
-        # restores the jnp substep loop.
-        use_pallas_fast = (_pallas_enabled()
-                           and not ob_relax and pacoustic.supported(model)
-                           and not _os.environ.get(
-                               "BREEZE_TPU_DISABLE_PALLAS_ACOUSTIC"))
         # Stage-entry (ρw)ᴸ for the KDH08 full-field sponge (terrain:
         # the fast system carries the contravariant ρw̃′, so damp the
         # contravariant stage field).
@@ -1436,11 +1403,7 @@ def acoustic_rk3_step(model: CompressibleModel, state: CompressibleState,
                     fl.pad(state.rho_v, g, fl.CFC), state.rho_w)
             else:
                 rho_w_L = state.rho_w
-        if use_pallas_fast:
-            pert = pacoustic.acoustic_substep_loop_pallas(
-                model, caches, G, pert, dtau, n_tau,
-                gate_first=(n_tau > 1), rho_w_L=rho_w_L)
-        else:
+        with jax.named_scope("acoustic_substeps"):
             pert = acoustic_substep_loop(model, caches, G, pert, dtau,
                                          n_tau, gate_first=(n_tau > 1),
                                          terrain=terrain, ob_relax=ob_relax,
@@ -1476,9 +1439,10 @@ def acoustic_rk3_step(model: CompressibleModel, state: CompressibleState,
         # Scalars over βΔt with time-averaged transport velocities
         # (reference ``scalar_rk3_substep!``, acoustic_runge_kutta_3.jl:154-163).
         if state.rho_qt is not None or state.tracers:
-            new_state = _advance_scalars(model, state_n, state, new_state,
-                                         avg_ru, avg_rv, avg_rw, beta * dt,
-                                         G_qt_slow=G.rho_qt, terrain=terrain)
+            with jax.named_scope("scalar_transport"):
+                new_state = _advance_scalars(
+                    model, state_n, state, new_state, avg_ru, avg_rv,
+                    avg_rw, beta * dt, G_qt_slow=G.rho_qt, terrain=terrain)
 
         # implicit_substep!: vertically-implicit closure diffusion over the
         # stage interval βΔt with TRUE densities (reference
@@ -1535,29 +1499,10 @@ def _advance_scalars(model, state_n, state_L, new_state, avg_ru, avg_rv,
         v_pad = fl.pad(avg_rv / rho_safe, g, fl.CFC)
         w_pad = fl.pad(avg_rw / rho_safe, g, fl.FCC)
 
-    # Fused Pallas scalar kernel on the flat Cartesian WENO5 envelope
-    # (same TPU-default gating as the slow-tendency path).
-    from ..pallas_kernels import advection as padv
-    use_pallas = (terrain is None
-                  and padv.available(g, model.scalar_advection))
-    if use_pallas:
-        pz = lambda a, loc: padv.pad_zy(a, g, loc)
-        pzu = pz(avg_ru / rho_safe, fl.CCF)
-        pzv = pz(avg_rv / rho_safe, fl.CFC)
-        pzw = pz(avg_rw / rho_safe, fl.FCC)
-        pzrho = pz(state_L.rho, fl.CCC)
-
-        _bounds = getattr(model.scalar_advection, "bounds_preserving", False)
-
-        def G_scalar(rho_c_field):
-            return padv.div_rho_u_c_pallas(
-                g, pz(rho_c_field / state_L.rho, fl.CCC),
-                pzu, pzv, pzw, pzrho, bounds=_bounds)
-    else:
-        def G_scalar(rho_c_field):
-            c_pad = fl.pad(rho_c_field / state_L.rho, g, fl.CCC)
-            return -adv.div_rho_u_c(so, model.scalar_advection, rho_pad,
-                                    u_pad, v_pad, w_pad, c_pad) * invJ
+    def G_scalar(rho_c_field):
+        c_pad = fl.pad(rho_c_field / state_L.rho, g, fl.CCC)
+        return -adv.div_rho_u_c(so, model.scalar_advection, rho_pad,
+                                u_pad, v_pad, w_pad, c_pad) * invJ
 
     updates = {}
     if state_L.rho_qt is not None:

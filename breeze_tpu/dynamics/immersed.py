@@ -1,6 +1,6 @@
 """Immersed boundaries: grid-fitted bottom topography via cell masking.
 
-TPU-native equivalent of the reference's Oceananigans immersed-boundary
+Equivalent of the reference's Oceananigans immersed-boundary
 substrate (``ImmersedBoundaryGrid``/``GridFittedBottom``; reference
 ``src/Breeze.jl:207``, used by the anelastic solver dispatch
 ``anelastic_pressure_solver.jl:15-21``): cells whose center lies below the
@@ -13,8 +13,8 @@ divergence near the terrain (reference comment at
 ``anelastic_pressure_solver.jl:15-18``).  For terrain-fitted accuracy use
 the σ-coordinate path (:mod:`breeze_tpu.dynamics.terrain`).
 
-Masking is pure elementwise multiplication — free on the VPU, fused by XLA
-into the tendency kernels (the TPU analogue of the reference's
+Masking is pure elementwise multiplication, fused by XLA
+into the tendency kernels (the analogue of the reference's
 ``mask_immersed_field!`` + ``inactive_cell`` predicates).
 """
 

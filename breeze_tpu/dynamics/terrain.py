@@ -1,6 +1,6 @@
 """Terrain-following σ-coordinates for the compressible core.
 
-TPU-native equivalent of reference ``src/TerrainFollowingDiscretization/``
+Equivalent of reference ``src/TerrainFollowingDiscretization/``
 (`TerrainFollowingVerticalDiscretization` ``terrain_following_vertical_
 discretization.jl:20-83``, `LinearDecay` ``terrain_formulations.jl:30``,
 `TerrainMetrics` ``terrain_metrics.jl:49-99``) and the terrain compressible
@@ -13,7 +13,7 @@ Coordinate map (Gal-Chen/Somerville with linear decay):
 
 so the Jacobian J = ∂z/∂ζ = 1 − h/H is ζ-independent (a 2-D field) and the
 slope  ∂z/∂x|_ζ = ∂h/∂x · (1 − ζ/H)  factorizes into a 2-D×1-D product —
-the TPU-friendly property this formulation is chosen for.
+the vectorization-friendly property this formulation is chosen for.
 
 v1 scope: the fully explicit compressible path (acoustic-CFL Δt); the
 terrain dispatch of the acoustic substepper is the round-2 extension.

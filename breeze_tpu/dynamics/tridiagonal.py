@@ -1,10 +1,9 @@
 """Batched tridiagonal (Thomas) solver along the z axis.
 
-TPU-native equivalent of the reference's ``BatchedTridiagonalSolver``
+Equivalent of the reference's ``BatchedTridiagonalSolver``
 (used by the acoustic substepper, ``acoustic_substepping.jl:218-223,487``,
 and vertically-implicit diffusion).  The solve is sequential in z (leading
-axis) and vectorized across every (y, x) column on the VPU via
-``lax.scan`` — z is never sharded (SURVEY.md §2.3), so no communication.
+axis) and vectorized across every (y, x) column via ``lax.scan`` — z is never sharded (SURVEY.md §2.3), so no communication.
 
 Coefficients may vary per column and per call (the acoustic coefficients are
 refreshed every RK stage), so no precomputed factorization here — contrast
@@ -17,6 +16,7 @@ import jax
 import jax.numpy as jnp
 
 
+@jax.named_scope("thomas_solve")
 def thomas_solve(lower, diag, upper, rhs):
     """Solve tridiagonal systems along axis 0.
 

@@ -1,6 +1,6 @@
 """Adaptive implicit vertical advection (AIVA) support.
 
-TPU-native equivalent of reference ``implicit_vertical_advection.jl:78-230``
+Equivalent of reference ``implicit_vertical_advection.jl:78-230``
 (Oceananigans ``AdaptiveImplicitVerticalAdvection`` + the reference's
 z-Face vertical-momentum coefficients): wherever the local vertical
 advective CFL α = |w̄|Δt/Δz exceeds the target, the explicit vertical flux
@@ -9,7 +9,7 @@ is scaled by s = cfl/α (see the ``z_flux_scale`` hooks in
 applied implicitly as a density-weighted first-order-upwind backward-Euler
 tridiagonal solve — fused here with the vertically-implicit closure
 diffusion into ONE Thomas solve per field class (one ``lax.scan`` pair over
-z, all columns vectorized on the VPU).
+z, all columns vectorized).
 
 Deviation from the reference: the reference interpolates w̄ with the
 explicit scheme's symmetric reconstruction; we use the second-order average

@@ -1,6 +1,6 @@
 """Field locations and halo filling.
 
-The TPU-native equivalent of the reference's ``Field`` + ``fill_halo_regions!``
+The equivalent of the reference's ``Field`` + ``fill_halo_regions!``
 machinery (reference ``src/Breeze.jl:202``, used at every kernel boundary,
 e.g. ``update_atmosphere_model_state.jl:48``): fields are plain ``(nz, ny, nx)``
 arrays; *location* (Center/Face per axis) is metadata, and halo filling is a
@@ -131,7 +131,7 @@ def enforce_impenetrability(w: jax.Array, grid: Grid) -> jax.Array:
 def enforce_wall_normals(grid: Grid, rho_u=None, rho_v=None, rho_w=None):
     """Zero wall-normal momenta on every bounded axis's stored wall face.
 
-    TPU analogue of the reference's ``enforce_wall_impenetrability!``
+    Analogue of the reference's ``enforce_wall_impenetrability!``
     (``acoustic_substepping.jl:1423-1428``): face 0 of each bounded axis is
     a wall (the opposite wall face is implicit in the halo rule).  Returns
     the tuple in the same order, skipping None entries.

@@ -1,9 +1,9 @@
-"""Rectilinear staggered (Arakawa C) grids for TPU-native atmospheric simulation.
+"""Rectilinear staggered (Arakawa C) grids for atmospheric simulation.
 
 Design notes
 ------------
-Arrays are laid out ``(z, y, x)``: x maps to TPU lanes (contiguous, 128-wide),
-y to sublanes, and z is the outer, sequential axis (columns are never sharded,
+Arrays are laid out ``(z, y, x)``: x is the contiguous (fastest-varying)
+axis, then y, and z is the outer, sequential axis (columns are never sharded,
 matching the reference's assumption that the vertical is the implicit axis).
 
 Index conventions (C-grid, mirrors the reference's Oceananigans substrate,
@@ -61,14 +61,14 @@ def _uniform_spacing(extent: float, n: int) -> float:
         "x_topology", "y_topology", "z_topology",
         "x0", "y0", "z0", "Lx", "Ly", "Lz",
         "dx", "dy", "halo", "dtype_name", "uniform_z", "dz_min",
-        "z_c_meta", "dz_c_meta", "dz_f_meta", "radius",
+        "z_c_meta", "radius",
     ],
 )
 @dataclasses.dataclass(frozen=True)
 class Grid:
     """A rectilinear, possibly vertically-stretched, staggered grid.
 
-    TPU-native analogue of the reference's ``RectilinearGrid``: horizontal
+    Analogue of the reference's ``RectilinearGrid``: horizontal
     spacings are uniform scalars (x, y are the FFT/shard axes); the vertical
     may be stretched, carried as 1-D arrays:
 
@@ -107,10 +107,6 @@ class Grid:
     #: static copy of the cell-center heights (Python floats) — usable for
     #: compile-time interpolation weights under jit, where ``z_c`` is a tracer.
     z_c_meta: tuple = ()
-    #: static cell thicknesses / center-to-center hops (Python floats) —
-    #: the Pallas kernels build their Δz columns from these under jit.
-    dz_c_meta: tuple = ()
-    dz_f_meta: tuple = ()
     radius: float | None = None
     coslat_c: jax.Array | None = None   # (ny,) at y-centers
     coslat_f: jax.Array | None = None   # (ny+1,) at y-faces
@@ -244,8 +240,6 @@ def make_grid(
         uniform_z=uniform_z,
         dz_min=float(dz_c.min()),
         z_c_meta=tuple(float(v) for v in z_c),
-        dz_c_meta=tuple(float(v) for v in dz_c),
-        dz_f_meta=tuple(float(v) for v in dz_f),
         z_c=jnp.asarray(z_c, fdtype),
         z_f=jnp.asarray(z_f, fdtype),
         dz_c=jnp.asarray(dz_c, fdtype),
@@ -264,7 +258,7 @@ def make_latlon_grid(
 ) -> Grid:
     """Latitude-longitude grid on a sphere of ``radius`` (shallow atmosphere).
 
-    TPU-native analogue of the reference's ``LatitudeLongitudeGrid``
+    Analogue of the reference's ``LatitudeLongitudeGrid``
     (re-export ``src/Breeze.jl:202``; used by the baroclinic-wave and
     DCMIP configs): x is longitude (periodic when spanning 360°), y is
     latitude (bounded), z is height.  ``dx``/``dy`` store the *equatorial*
@@ -310,7 +304,7 @@ def piecewise_stretched_z(
 ) -> np.ndarray:
     """Face heights for a surface-resolving stretched vertical grid.
 
-    TPU-native equivalent of the reference's
+    Equivalent of the reference's
     ``PiecewiseStretchedDiscretization`` (``src/VerticalGrids.jl:47-82``):
     uniform ``surface_layer_spacing`` up to ``surface_layer_height``, then
     geometric stretching by ``stretching`` per level, rescaled so the last

@@ -1,6 +1,6 @@
 """Kinematic driver: prescribed-velocity scalar transport for microphysics tests.
 
-TPU-native equivalent of reference ``src/KinematicDriver/``
+Equivalent of reference ``src/KinematicDriver/``
 (`PrescribedDensity` :10, `PrescribedDynamics` :33, prognostic ρ tendency
 ``kinematic_driver_time_stepping.jl:79-96``): velocities are prescribed
 functions of (x, y, z, t); only scalars (θ, moisture, tracers) are

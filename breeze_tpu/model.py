@@ -1,6 +1,6 @@
 """The AtmosphereModel hub: state, configuration, diagnostics, tendencies.
 
-TPU-native re-design of the reference's ``src/AtmosphereModels/`` layer
+Re-design of the reference's ``src/AtmosphereModels/`` layer
 (`AtmosphereModel` struct ``atmosphere_model.jl:37-313``, tendency kernels
 ``dynamics_kernel_functions.jl``, state refresh
 ``update_atmosphere_model_state.jl:41-68``).  The reference's
@@ -14,7 +14,6 @@ RK stage.
 from __future__ import annotations
 
 import dataclasses
-import os
 from functools import partial
 from typing import Any, Callable, NamedTuple
 
@@ -105,7 +104,7 @@ class Aux(NamedTuple):
 class AtmosphereModel:
     """Anelastic atmosphere model configuration.
 
-    TPU analogue of ``AtmosphereModel(grid; dynamics, advection,
+    Analogue of ``AtmosphereModel(grid; dynamics, advection,
     microphysics, closure, ...)`` (reference ``atmosphere_model.jl:114-313``)
     specialized to ``AnelasticDynamics`` + liquid-ice potential temperature
     formulation (the reference's defaults).
@@ -200,7 +199,7 @@ def initial_state(model: AtmosphereModel,
                   enforce_mass_conservation: bool | None = None) -> State:
     """Build a :class:`State` from specific fields (θ or T, qᵗ, velocities).
 
-    TPU analogue of ``set!(model; u, θ, qᵗ, ...)``
+    Analogue of ``set!(model; u, θ, qᵗ, ...)``
     (``set_atmosphere_model.jl:198``): specific quantities are converted to
     density-weighted prognostics against the reference density; unspecified
     fields default to rest/reference values.
@@ -434,17 +433,16 @@ def _diagnose_static_energy(model: AtmosphereModel, state: State, u, v, w,
                buoyancy_force=buoyancy_force)
 
 
-def _padded_reference_columns(model: AtmosphereModel, halo: int | None = None):
+def _padded_reference_columns(model: AtmosphereModel):
     """z-halo-padded reference-density columns, broadcastable to padded fields.
 
     The center column pads with the even mirror (matching the CCC halo
     rule); the face column pads evenly about the wall faces so that the
     product ``ρᶠ_pad × w_pad`` reproduces the odd-reflected pad of ρw.
     Horizontal pads are trivial for a z-profile (wrap/mirror of a constant).
-    ``halo`` overrides the grid halo (the Pallas kernels pad z by exactly 3).
     """
     g = model.grid
-    h = g.halo if halo is None else halo
+    h = g.halo
     ref = model.reference
     rc = ref.rho_c
     rf = ref.rho_f            # faces 0..nz (nz+1 values)
@@ -462,48 +460,12 @@ def _padded_reference_columns(model: AtmosphereModel, halo: int | None = None):
     return c_pad[:, None, None], f_pad[:, None, None]
 
 
-def _pad_center_column(grid, col, h):
-    """z-halo-pad a 1-D center-located column (even mirror / wrap)."""
-    from .grid import Topology
-    col = jnp.asarray(col).reshape(-1)
-    if grid.z_topology == Topology.BOUNDED:
-        out = jnp.concatenate([col[:h][::-1], col, col[-h:][::-1]])
-    else:
-        out = jnp.concatenate([col[-h:], col, col[:h]])
-    return out[:, None, None]
-
-
-def _dry_buoyancy_columns(model: AtmosphereModel, halo: int):
-    """(T_eff, Π, gρᵣ) padded center columns for the in-kernel dry buoyancy.
-
-    The fused tendency kernel evaluates b = gρᵣ(1 − T_eff/(Π·θ)) — the
-    q ≡ 0 closed form of the perturbation buoyancy in :func:`diagnose`,
-    with T_eff = RᵐᵣTᵣ/Rᵐ₀ folding a (possibly moist) reference's gas
-    constant against the dry state's (all column arithmetic, traced but
-    O(nz)).
-    """
-    from .thermo.states import exner_function
-    ref = model.reference
-    c = model.constants
-    q0 = MoistureMassFractions.vapor_only(jnp.zeros_like(ref.p_c))
-    Pi = exner_function(ref.p_c, q0, c, model.p_standard)
-    grho = c.gravitational_acceleration * ref.rho_c
-    q_ref = ref.moisture_fractions_col()
-    Rm_ref = c.mixture_gas_constant(q_ref)[:, 0, 0]
-    Rm0 = c.mixture_gas_constant(
-        MoistureMassFractions.vapor_only(jnp.zeros_like(ref.p_c)))
-    T_eff = Rm_ref * ref.T_c / Rm0
-    return (_pad_center_column(model.grid, T_eff, halo),
-            _pad_center_column(model.grid, Pi, halo),
-            _pad_center_column(model.grid, grho, halo))
-
-
 # ---------------------------------------------------------------------------
 # Tendencies
 # ---------------------------------------------------------------------------
 
 def compute_tendencies(model: AtmosphereModel, state: State, aux: Aux | None = None,
-                       dt=None, _substep=None):
+                       dt=None):
     """Right-hand sides for every prognostic field.
 
     Mirrors ``compute_tendencies!`` (``update_atmosphere_model_state.jl:
@@ -518,16 +480,6 @@ def compute_tendencies(model: AtmosphereModel, state: State, aux: Aux | None = N
     implicit remainder is applied by the stepper
     (``dynamics/vertical_implicit.py``).  With ``dt=None`` AIVA schemes run
     fully explicit.
-
-    ``_substep`` (internal; use :func:`stage_update`): ``(state0, alpha)``
-    activates the fused SSP-RK3 substep epilogue of the tendency
-    mega-kernel when the fused path applies — the kernel then emits
-    (1−α)s⁰ + α(s + Δt·G) directly and the return value is
-    ``(new_state_fields, True)``; otherwise ``(G, False)``.  Post-kernel
-    additive tendencies (surface-flux BCs, forcings, jnp closure, ρe wb
-    term) are applied to the substepped fields scaled by αΔt — they are
-    all linear additions to G, so the value agrees with the unfused path
-    to rounding (bitwise when no post-kernel additions are active).
     """
     if aux is None:
         aux = diagnose(model, state)
@@ -562,275 +514,65 @@ def compute_tendencies(model: AtmosphereModel, state: State, aux: Aux | None = N
     pcb = model.immersed if isinstance(model.immersed,
                                        PartialCellBottom) else None
 
-    # Fused Pallas kernels (default on TPU; see pallas_kernels/)
-    from .pallas_kernels import advection as padv
-    from .pallas_kernels import momentum as pmom
-    from .pallas_kernels import tendency as ptend
-
-    # The tendency mega-kernel fuses momentum + all scalars + FPlane
-    # Coriolis + buoyancy into ONE pass (pallas_kernels/tendency.py);
-    # BREEZE_TPU_DISABLE_PALLAS_FUSED=1 restores the round-2 split kernels.
-    # Under shard_map (1-D x, 1-D y, or 2-D Partition(px,py)) the kernel
-    # keeps running: x-sharded axes use the x-prepadded variant
-    # (advection.HX doc), y-sharded halos ride the shard-aware pad_zy —
-    # decomposition never drops to the jnp fallback within the envelope.
-    shard_hx = None if padv.enabled() else padv.sharded_kernel_mode(g)
-    xpad = shard_hx is not None
-    use_fused = ((padv.enabled() or xpad) and z_scales_mom is None
-                 and z_scale_scal is None and pcb is None
-                 and ptend.supported(g, mom_scheme, scal_scheme,
-                                     model.coriolis)
-                 and not os.environ.get("BREEZE_TPU_DISABLE_PALLAS_FUSED"))
-    use_pallas_mom = (not use_fused and padv.enabled()
-                      and z_scales_mom is None
-                      and pcb is None and pmom.supported(g, mom_scheme))
-    use_pallas_scalar = (not use_fused and padv.available(g, scal_scheme)
-                         and z_scale_scal is None and pcb is None)
-    # Fused SGS closure kernel (pallas_kernels/closure.py): rides the same
-    # windows as the tendency mega-kernel.
-    from .pallas_kernels import closure as pclo
-    use_pallas_closure = (model.closure is not None and use_fused
-                          and model.formulation == "theta_li"
-                          and pclo.supported(g, model.closure)
-                          and not os.environ.get(
-                              "BREEZE_TPU_DISABLE_PALLAS_CLOSURE"))
-    if xpad and use_fused and shard_hx:
-        # x pre-pad FIRST (shard-aware ppermute), then z/y pads so the
-        # kernel windows carry correct corner halos across the full padded
-        # lane width (the y pad is itself shard-aware under Partition(px,py)).
-        pz = lambda a, loc: padv.pad_zy(padv.pad_x(a, g, loc), g, loc)
-    else:
-        # dense, or y-only decomposition (pad_zy routes the sharded y halo
-        # through ppermute; kernel body unchanged, hx=0)
-        pz = lambda a, loc: padv.pad_zy(a, g, loc)
-    pzu = pzv = pzw = None
-    if use_fused or use_pallas_mom or use_pallas_scalar:
-        pzu, pzv, pzw = pz(aux.u, fl.CCF), pz(aux.v, fl.CFC), pz(aux.w, fl.FCC)
-
     # Anelastic: ρu = ρᵣ(z)·u with a z-only profile, so the padded momentum
     # is the padded velocity times a z-padded COLUMN — a fused broadcast
     # multiply instead of three full-field halo materializations.
     rho_c_padcol, rho_f_padcol = _padded_reference_columns(model)
-
-    # The full halo pads are only needed by the jnp advection fallback,
-    # the jnp Coriolis (non-FPlane), and the jnp SGS closure.
-    need_full_pads = ((model.closure is not None and not use_pallas_closure)
-                      or (not use_fused
-                          and ((not use_pallas_mom) or (not use_pallas_scalar)
-                               or model.coriolis is not None)))
-    u_pad = v_pad = w_pad = rho_u_pad = rho_v_pad = rho_w_pad = None
-    if need_full_pads:
-        u_pad = fl.pad(aux.u, g, fl.CCF)
-        v_pad = fl.pad(aux.v, g, fl.CFC)
-        w_pad = fl.pad(aux.w, g, fl.FCC)
-        rho_u_pad = u_pad * rho_c_padcol
-        rho_v_pad = v_pad * rho_c_padcol
-        rho_w_pad = w_pad * rho_f_padcol
+    u_pad = fl.pad(aux.u, g, fl.CCF)
+    v_pad = fl.pad(aux.v, g, fl.CFC)
+    w_pad = fl.pad(aux.w, g, fl.FCC)
+    rho_u_pad = u_pad * rho_c_padcol
+    rho_v_pad = v_pad * rho_c_padcol
+    rho_w_pad = w_pad * rho_f_padcol
 
     tracer_names = list(state.tracers.keys())
 
-    if use_fused:
-        from .pallas_kernels.momentum import H as _PH
-        col_c, col_f = _padded_reference_columns(model, halo=_PH)
-        chi = state.rho_theta / ref.rho_col
-        scalars = [chi]
-        if model.has_moisture:
-            scalars.append(aux.qt)
-        scalars += [state.tracers[k] / ref.rho_col for k in tracer_names]
-        dry_buoy = (not model.has_moisture
-                    and model.formulation == "theta_li")
-        if dry_buoy:
-            buoy_cols = _dry_buoyancy_columns(model, halo=_PH)
-            b_pad_in = None
-        else:
-            buoy_cols = None
-            b_pad_in = pz(aux.buoyancy_force, fl.CCC)
-        f_cor = None if model.coriolis is None else model.coriolis.f
-        scal_pads = [pz(s, fl.CCC) for s in scalars]
-        # Fuse the SGS stage into the mega-kernel epilogue (one pass over
-        # the windows; BREEZE_TPU_SPLIT_PALLAS_CLOSURE=1 restores the
-        # separate closure kernel for A/B measurement — except under xpad,
-        # where only the merged form exists).
-        merge_closure = (use_pallas_closure and (xpad or not os.environ.get(
-            "BREEZE_TPU_SPLIT_PALLAS_CLOSURE")))
-        thb_pad_zy = None
-        if merge_closure and (model.closure.buoyancy_correction
-                              and model.has_moisture):
-            c_ = model.constants
-            delta_rv = c_.Rv / c_.Rd - 1.0
-            th_b = aux.theta * (1.0 + delta_rv * aux.q.vapor
-                                - aux.q.liquid - aux.q.ice)
-            thb_pad_zy = pz(th_b, fl.CCC)
-        # Column-linear forcings fused into the kernel epilogue
-        # (G += add(z) − damp(z)·ρ-field; physics.forcings.*.column_parts):
-        # every BOMEX-class forcing (geostrophic, subsidence, drying,
-        # sponge) reduces to per-level columns, so the post-kernel
-        # full-field read-modify-write extras pass disappears.  Works in
-        # sharded (shard_map) contexts too: the horizontal means in
-        # column_parts are global (forcings.horizontal_mean pmeans over
-        # the active mesh axes), so fused == jnp == dense under
-        # decomposition.
-        forcing_cols = None
-        forcings_fused = False
-        if (model.forcings and not xpad
-                and model.immersed is None
-                and all(hasattr(f, "column_parts") for f in model.forcings)
-                and not os.environ.get("BREEZE_TPU_DISABLE_PALLAS_FCOL")):
-            name_to_idx = {"rho_u": 0, "rho_v": 1, "rho_w": 2, "rho_theta": 3}
-            if model.has_moisture:
-                name_to_idx["rho_qt"] = 4
-            for i, k in enumerate(tracer_names):
-                name_to_idx[k] = (5 if model.has_moisture else 4) + i
-            n_out = 3 + len(scalars)
-            adds = [None] * n_out
-            damps = [None] * n_out
-            ok = True
-            for f in model.forcings:
-                for name, (a, d) in f.column_parts(model, state, aux).items():
-                    if name not in name_to_idx:
-                        ok = False
-                        break
-                    idx = name_to_idx[name]
-                    if a is not None:
-                        adds[idx] = a if adds[idx] is None else adds[idx] + a
-                    if d is not None:
-                        damps[idx] = (d if damps[idx] is None
-                                      else damps[idx] + d)
-                if not ok:
-                    break
-            if ok:
-                forcing_cols = (adds, damps)
-                forcings_fused = True
+    # Momentum advection: ∇·(ρU ⊗ u)
+    adv_u, adv_v, adv_w = adv.momentum_flux_divergence(
+        so, mom_scheme,
+        rho_u_pad, rho_v_pad, rho_w_pad, u_pad, v_pad, w_pad,
+        z_scales=z_scales_mom,
+        z_spacings=(None if pcb is None
+                    else (pcb.dz_u3, pcb.dz_v3, None)))
 
-        sub_arg = None
-        fused_substepped = False
-        # The substep epilogue has its own opt-out so the hardware-verified
-        # tendency-only mega-kernel stays reachable without giving up the
-        # whole fused path (BREEZE_TPU_DISABLE_PALLAS_FUSED).
-        if (_substep is not None and not xpad and model.immersed is None
-                and dt is not None
-                and not os.environ.get("BREEZE_TPU_DISABLE_PALLAS_SUBSTEP")):
-            state0, sub_alpha = _substep
-            cur = [state.rho_u, state.rho_v, state.rho_w, state.rho_theta]
-            prev = [state0.rho_u, state0.rho_v, state0.rho_w,
-                    state0.rho_theta]
-            if model.has_moisture:
-                cur.append(state.rho_qt)
-                prev.append(state0.rho_qt)
-            cur += [state.tracers[k] for k in tracer_names]
-            prev += [state0.tracers[k] for k in tracer_names]
-            sub_arg = (cur, prev, sub_alpha, dt)
-            fused_substepped = True
-        G_rho_u, G_rho_v, G_rho_w, G_scal = ptend.fused_tendency_pallas(
-            g, pzu, pzv, pzw, scal_pads,
-            col_c, col_f, coriolis_f=f_cor, buoy_cols=buoy_cols,
-            b_pad=b_pad_in,
-            scal_bounds=getattr(scal_scheme, "bounds_preserving", False),
-            closure_model=model if merge_closure else None,
-            thb_pad=thb_pad_zy, hx=shard_hx or 0,
-            substep=sub_arg, forcing_cols=forcing_cols)
-        if merge_closure:
-            # SGS tendencies already folded in by the kernel epilogue
-            use_pallas_closure = False
-            closure_done = True
-        else:
-            closure_done = False
-        G_rho_theta = G_scal[0]
-        k0 = 1
-        G_rho_qt = None
-        if model.has_moisture:
-            G_rho_qt = G_scal[1]
-            k0 = 2
-        G_tracers = {k: G_scal[k0 + i] for i, k in enumerate(tracer_names)}
-    else:
-        closure_done = False
-        fused_substepped = False
-        forcings_fused = False
-        # Momentum advection: ∇·(ρU ⊗ u)
-        if use_pallas_mom:
-            from .pallas_kernels.momentum import H as _PH
-            col_c, col_f = _padded_reference_columns(model, halo=_PH)
-            if not os.environ.get("BREEZE_TPU_DISABLE_PALLAS_MOM_COLS"):
-                # Momenta formed in VMEM from the reference columns (3 HBM
-                # field reads instead of 6).  Verified compiled + faster on
-                # v5e (23.35 vs 23.87 ms/step, 256x256x128 WENO5 f32) — the
-                # DEFAULT; BREEZE_TPU_DISABLE_PALLAS_MOM_COLS=1 restores the
-                # premultiplied-momenta kernel.
-                adv_u, adv_v, adv_w = pmom.momentum_div_pallas_cols(
-                    g, pzu, pzv, pzw, col_c, col_f)
-            else:
-                adv_u, adv_v, adv_w = pmom.momentum_div_pallas(
-                    g, pzu * col_c, pzv * col_c, pzw * col_f, pzu, pzv, pzw)
-        else:
-            adv_u, adv_v, adv_w = adv.momentum_flux_divergence(
-                so, mom_scheme,
-                rho_u_pad, rho_v_pad, rho_w_pad, u_pad, v_pad, w_pad,
-                z_scales=z_scales_mom,
-                z_spacings=(None if pcb is None
-                            else (pcb.dz_u3, pcb.dz_v3, None)))
+    cor_x, cor_y, cor_z = coriolis_terms(
+        model.coriolis, so, rho_u_pad, rho_v_pad, rho_w_pad, g)
 
-        cor_x, cor_y, cor_z = coriolis_terms(
-            model.coriolis, so, rho_u_pad, rho_v_pad, rho_w_pad, g)
+    G_rho_u = -adv_u - cor_x
+    G_rho_v = -adv_v - cor_y
+    # Buoyancy interpolated center→z-face (buoyancy_forceᶜᶜᶠ,
+    # dynamics_kernel_functions.jl:42).
+    b_pad = fl.pad(aux.buoyancy_force, g, fl.CCC)
+    G_rho_w = -adv_w - cor_z + so.iz_cf(b_pad)
 
-        G_rho_u = -adv_u - cor_x
-        G_rho_v = -adv_v - cor_y
-        # Buoyancy interpolated center→z-face (buoyancy_forceᶜᶜᶠ,
-        # dynamics_kernel_functions.jl:42).
-        b_pad = fl.pad(aux.buoyancy_force, g, fl.CCC)
-        G_rho_w = -adv_w - cor_z + so.iz_cf(b_pad)
+    # Scalars: θ and qᵗ advected as specific quantities against ρᵣ
+    # (potential_temperature_tendency.jl:100-105; scalar_tendency
+    # dynamics_kernel_functions.jl:132-159).  The density is the z-padded
+    # reference COLUMN — broadcasting through the flux machinery without a
+    # full-field halo materialization.
+    rho_r_pad = rho_c_padcol
 
-        # Scalars: θ and qᵗ advected as specific quantities against ρᵣ
-        # (potential_temperature_tendency.jl:100-105; scalar_tendency
-        # dynamics_kernel_functions.jl:132-159).  The density is the z-padded
-        # reference COLUMN — broadcasting through the flux machinery without a
-        # full-field halo materialization.
-        rho_r_pad = rho_c_padcol
+    def scalar_div(c_spec):
+        c_pad = fl.pad(c_spec, g, fl.CCC)
+        return adv.div_rho_u_c(
+            so, scal_scheme, rho_r_pad, u_pad, v_pad, w_pad, c_pad,
+            z_flux_scale=z_scale_scal,
+            z_spacing=None if pcb is None else pcb.dz_c3,
+            face_fractions=None if pcb is None
+            else (pcb.frac_u, pcb.frac_v, pcb.frac_c))
 
-        # Fused Pallas scalar-advection path (see pallas_kernels.advection)
-        if use_pallas_scalar:
-            rho_r_field = jnp.broadcast_to(ref.rho_col, g.shape).astype(g.dtype)
-            pz_args = (pzu, pzv, pzw, pz(rho_r_field, fl.CCC))
-            _bounds = getattr(scal_scheme, "bounds_preserving", False)
+    # Specific thermodynamic prognostic: θˡⁱ or e (formulation dispatch,
+    # reference formulation_interface.jl:22-208).
+    chi = state.rho_theta / ref.rho_col
+    G_rho_theta = -scalar_div(chi)
 
-            def scalar_div(c_spec):
-                return -padv.div_rho_u_c_pallas(g, pz(c_spec, fl.CCC),
-                                                *pz_args, bounds=_bounds)
-        else:
-            def scalar_div(c_spec):
-                c_pad = fl.pad(c_spec, g, fl.CCC)
-                return adv.div_rho_u_c(
-                    so, scal_scheme, rho_r_pad, u_pad, v_pad, w_pad, c_pad,
-                    z_flux_scale=z_scale_scal,
-                    z_spacing=None if pcb is None else pcb.dz_c3,
-                    face_fractions=None if pcb is None
-                    else (pcb.frac_u, pcb.frac_v, pcb.frac_c))
+    G_rho_qt = None
+    if model.has_moisture:
+        G_rho_qt = -scalar_div(aux.qt)
 
-        # Specific thermodynamic prognostic: θˡⁱ or e (formulation dispatch,
-        # reference formulation_interface.jl:22-208).
-        chi = state.rho_theta / ref.rho_col
-        G_rho_theta = -scalar_div(chi)
-
-        G_rho_qt = None
-        if model.has_moisture:
-            G_rho_qt = -scalar_div(aux.qt)
-
-        G_tracers = {}
-        for name in tracer_names:
-            G_tracers[name] = -scalar_div(state.tracers[name] / ref.rho_col)
-
-    # Fused-substep mode: the kernel outputs already ARE the substepped
-    # prognostics.  Stash them and zero the G accumulators so every
-    # remaining contribution (ρe wb term, jnp/split closure, BCs,
-    # forcings) collects into an extra-tendency State applied as +αΔt·ΔG
-    # at the end (all additive in G, so only rounding differs).
-    sub_new = None
-    if fused_substepped:
-        sub_new = (G_rho_u, G_rho_v, G_rho_w, G_rho_theta, G_rho_qt,
-                   G_tracers)
-        _z = jnp.zeros(g.shape, g.dtype)
-        G_rho_u = G_rho_v = G_rho_w = G_rho_theta = _z
-        G_rho_qt = _z if model.has_moisture else None
-        G_tracers = {k: _z for k in tracer_names}
+    G_tracers = {}
+    for name in tracer_names:
+        G_tracers[name] = -scalar_div(state.tracers[name] / ref.rho_col)
 
     if model.formulation == "static_energy":
         # −ρwb buoyancy flux couples energy and momentum budgets in the
@@ -840,27 +582,7 @@ def compute_tendencies(model: AtmosphereModel, state: State, aux: Aux | None = N
         G_rho_theta = G_rho_theta - so.iz_fc(wb_pad)
 
     # Closure (SGS) stress divergence and diffusive scalar fluxes.
-    closure_fluxes = None
-    if use_pallas_closure:
-        thb_pad_zy = None
-        if model.closure.buoyancy_correction and model.has_moisture:
-            # θᵥ with the sat-adjusted moisture partition (matches the jnp
-            # closure's Lilly correction input); dry reuses the θ window.
-            c = model.constants
-            delta_rv = c.Rv / c.Rd - 1.0
-            th_b = aux.theta * (1.0 + delta_rv * aux.q.vapor
-                                - aux.q.liquid - aux.q.ice)
-            thb_pad_zy = pz(th_b, fl.CCC)
-        Gu_c, Gv_c, Gw_c, Gth_c, Gqt_c = pclo.closure_tendencies_pallas(
-            model, pzu, pzv, pzw, scal_pads[0],
-            scal_pads[1] if model.has_moisture else None, thb_pad_zy)
-        G_rho_u = G_rho_u + Gu_c
-        G_rho_v = G_rho_v + Gv_c
-        G_rho_w = G_rho_w + Gw_c
-        G_rho_theta = G_rho_theta + Gth_c
-        if model.has_moisture and Gqt_c is not None:
-            G_rho_qt = G_rho_qt + Gqt_c
-    elif model.closure is not None and not closure_done:
+    if model.closure is not None:
         from .physics.closures import closure_tendencies
         closure_fluxes = closure_tendencies(
             model, so, aux, u_pad, v_pad, w_pad)
@@ -885,11 +607,9 @@ def compute_tendencies(model: AtmosphereModel, state: State, aux: Aux | None = N
         from .physics.surface import apply_boundary_flux_tendencies
         G = apply_boundary_flux_tendencies(model, state, aux, G)
 
-    # User forcings (geostrophic, subsidence, sponges...) — unless already
-    # folded into the kernel epilogue as columns (forcings_fused above).
-    if not forcings_fused:
-        for forcing in model.forcings:
-            G = forcing(model, state, aux, G)
+    # User forcings (geostrophic, subsidence, sponges...).
+    for forcing in model.forcings:
+        G = forcing(model, state, aux, G)
 
     # Immersed boundary: no evolution inside the solid (reference
     # inactive_cell masking in every tendency kernel).
@@ -897,41 +617,15 @@ def compute_tendencies(model: AtmosphereModel, state: State, aux: Aux | None = N
         from .dynamics.immersed import mask_tendencies
         G = mask_tendencies(model.immersed, G)
 
-    if _substep is not None:
-        if not fused_substepped:
-            return G, False
-        a_dt = sub_alpha * dt
-        nu, nv, nw, nt, nq, ntr = sub_new
-        new = State(
-            rho_u=nu + a_dt * G.rho_u,
-            rho_v=nv + a_dt * G.rho_v,
-            rho_w=nw + a_dt * G.rho_w,
-            rho_theta=nt + a_dt * G.rho_theta,
-            rho_qt=None if nq is None else nq + a_dt * G.rho_qt,
-            tracers={k: ntr[k] + a_dt * G.tracers[k] for k in ntr},
-            time=state.time,
-        )
-        return new, True
-
     return G
 
 
 def stage_update(model: AtmosphereModel, state: State, state0: State,
                  dt, alpha, aux: Aux | None = None) -> State:
     """One SSP-RK3 stage blend (pre-projection): returns the State with
-    every prognostic at (1−α)s⁰ + α(s + Δt·G).
-
-    On the fused-Pallas path the blend happens inside the tendency
-    mega-kernel epilogue (saving the separate XLA substep pass, ~4(3+K)
-    HBM transits per stage); everywhere else it falls back to
-    ``compute_tendencies`` + the explicit blend (reference substep
-    formula, ``ssp_runge_kutta_3.jl:165-172``).
-    """
-    res, applied = compute_tendencies(model, state, aux, dt=dt,
-                                      _substep=(state0, alpha))
-    if applied:
-        return res
-    G = res
+    every prognostic at (1−α)s⁰ + α(s + Δt·G) (reference substep formula,
+    ``ssp_runge_kutta_3.jl:165-172``)."""
+    G = compute_tendencies(model, state, aux, dt=dt)
 
     def sub(s, s0, gg):
         return (1.0 - alpha) * s0 + alpha * (s + dt * gg)
@@ -974,23 +668,8 @@ def pressure_projection(model: AtmosphereModel, rho_u, rho_v, rho_w, dt):
         rho_v = rho_v * ib.mask_v
         rho_w = rho_w * ib.mask_w
 
-    from .pallas_kernels import projection as pproj
-    from .pallas_kernels.advection import enabled as _pallas_enabled
-    use_pallas = (_pallas_enabled() and model.immersed is None
-                  and pproj.supported(g)
-                  and bool(os.environ.get("BREEZE_TPU_PALLAS_PROJ")))
     rho_c = model.reference.rho_col
     rho_f = model.reference.rho_f_col
-
-    if use_pallas:
-        # Fused single-pass divergence + gradient-correct kernels
-        # (pallas_kernels/projection.py); interpret-verified, opt-in via
-        # BREEZE_TPU_PALLAS_PROJ=1 until TPU-verified.
-        div = pproj.divergence_pallas(g, rho_u, rho_v, rho_w)
-        phi = model.solver.solve(div, dt)
-        return (*pproj.gradient_correct_pallas(
-            g, phi, rho_u, rho_v, rho_w, rho_c[:, 0, 0],
-            rho_f[: g.nz, 0, 0], dt), phi)
 
     # δ = ∇·(ρu) at centers (1-wide halos suffice).
     ru_pad = fl.pad(rho_u, g, fl.CCF)
@@ -998,7 +677,8 @@ def pressure_projection(model: AtmosphereModel, rho_u, rho_v, rho_w, dt):
     rw_pad = fl.pad(rho_w, g, fl.FCC)
     div = so.div_c(ru_pad, rv_pad, rw_pad)
 
-    phi = model.solver.solve(div, dt)
+    with jax.named_scope("poisson_solve"):
+        phi = model.solver.solve(div, dt)
 
     phi_pad = fl.pad(phi, g, fl.CCC)
     rho_u = rho_u - dt * rho_c * so.dx_cf(phi_pad)

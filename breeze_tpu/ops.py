@@ -1,11 +1,11 @@
 """Finite-volume stencil operators on halo-padded arrays.
 
-TPU-native equivalent of the reference's Oceananigans operator library
+Equivalent of the reference's Oceananigans operator library
 (``∂xᶠᶜᶜ``, ``ℑzᵃᵃᶠ``, ``δ`` differences, ``divᶜᶜᶜ``; import surface at
 reference ``src/Breeze.jl:168-197``).  Every operator is a pure function of
 halo-padded arrays; the workhorse is :func:`sh`, a static shifted-window view
 that XLA fuses into the consuming elementwise loop — there is no materialized
-stencil traffic on TPU, the compiler tiles the fused loop onto the VPU.
+stencil traffic.
 
 Axis order everywhere is ``(z, y, x)`` (axis 0 = z, 1 = y, 2 = x).
 

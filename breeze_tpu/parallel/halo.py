@@ -1,11 +1,11 @@
 """Explicit distributed halo exchange for shard_map execution.
 
-TPU-native equivalent of the reference's MPI ``fill_halo_regions!``
+Equivalent of the reference's MPI ``fill_halo_regions!``
 (Oceananigans DistributedComputations; SURVEY.md §2.3 item 2): under
 ``jax.shard_map``, each device holds an interior shard of the (y, x) plane;
 halo padding along a sharded periodic axis becomes a neighbor exchange via
-``lax.ppermute`` over the ICI ring (cyclic permutation = periodic global
-topology).
+``lax.ppermute`` between neighbouring devices (cyclic permutation =
+periodic global topology).
 
 Two ways to use it:
 
@@ -14,9 +14,7 @@ Two ways to use it:
    concatenate-of-slices into the same collective-permutes automatically.
 2. **shard_map (manual path)**: wrap per-shard step code with
    :func:`shard_axes` so :func:`pad_axis_sharded` routes the wrap halos
-   through ppermute.  This is the hook for future Pallas
-   ``make_async_remote_copy`` halo kernels overlapped with interior compute
-   (SURVEY.md §7 phase 8).
+   through ppermute.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Device-mesh parallelism: 2-D horizontal domain decomposition.
 
-TPU-native equivalent of the reference's ``Distributed(arch;
+Equivalent of the reference's ``Distributed(arch;
 partition=Partition(px, py))`` MPI decomposition (reference
 ``src/Breeze.jl:171,182,208``; SURVEY.md §2.3): the horizontal (x, y) axes
 shard over a ``jax.sharding.Mesh``; z is never decomposed (the implicit /
@@ -15,8 +15,7 @@ Two execution paths:
    hand-written MPI halo exchange wholesale.
 2. **shard_map + explicit halo exchange** (perf path, see
    :mod:`breeze_tpu.parallel.halo`): per-shard stencils with ``ppermute``
-   halo exchange, enabling interior/boundary overlap and Pallas DMA
-   kernels later.
+   halo exchange, enabling interior/boundary overlap.
 """
 
 from __future__ import annotations
@@ -75,28 +74,11 @@ def model_sharding(mesh: Mesh, model):
 
 
 def shard_step(step_fn, mesh: Mesh, model, state, donate: bool = True):
-    """jit ``step_fn(model, state, dt) -> state`` over the mesh (GSPMD path).
-
-    The Pallas kernels are disabled inside the traced step when the mesh
-    has more than one device: ``pallas_call`` carries no SPMD partitioning
-    rules, so under GSPMD it would force gathers (or mis-partition); the
-    shard_map path gates them the same way via ``halo.shard_axes``.
-    Single-device meshes keep the kernels.
-    """
-    from ..pallas_kernels.advection import disabled as _pallas_disabled
-
+    """jit ``step_fn(model, state, dt) -> state`` over the mesh (GSPMD path)."""
     ms = model_sharding(mesh, model)
     ss = state_sharding(mesh, state)
-    multi = mesh.devices.size > 1
-
-    def stepped(model, state, dt):
-        if multi:
-            with _pallas_disabled():
-                return step_fn(model, state, dt)
-        return step_fn(model, state, dt)
-
     return jax.jit(
-        stepped,
+        step_fn,
         in_shardings=(ms, ss, None),
         out_shardings=ss,
         donate_argnums=(1,) if donate else (),

@@ -1,6 +1,6 @@
 """Production shard_map execution path: explicit-collective distributed step.
 
-TPU-native equivalent of the reference's hand-written MPI decomposition
+Equivalent of the reference's hand-written MPI decomposition
 (Oceananigans ``DistributedComputations``; SURVEY.md §2.3 item 2 and §7
 phase 8) — the alternative to the GSPMD path of :mod:`.mesh` with every
 communication explicit:
@@ -21,11 +21,11 @@ the shard width, with the context manager :func:`halo.shard_axes` marking
 axis 2 as mesh-sharded.
 
 Use :func:`make_shard_map_step` for a jitted whole-step function, or
-:func:`initialize_distributed` first on multi-host (DCN) deployments.
+:func:`initialize_distributed` first on multi-host deployments.
 
 **Compute/comm overlap.** The reference hand-overlaps MPI halo exchange
-with interior compute (async ``fill_halo_regions!``).  The TPU-native
-equivalent is dataflow freedom + XLA's latency-hiding scheduler: each
+with interior compute (async ``fill_halo_regions!``).  The equivalent
+here is dataflow freedom + XLA's latency-hiding scheduler: each
 ``ppermute`` here is issued as an async collective-permute (start/done
 pair), and everything that does not consume the exchanged halo — the
 z-direction fluxes and tridiagonal solves (z is never sharded), the
@@ -33,9 +33,6 @@ pointwise thermodynamics, the y-direction stencils under 1-D x sharding —
 is free to schedule between start and done.  The flux-divergence code
 keeps those directions dependency-separate precisely so the scheduler can
 do this; nothing in the program forces a bulk-synchronous exchange.
-(Knobs, if profiling on real multi-chip hardware shows missed overlap:
-``--xla_tpu_enable_async_collective_permute``,
-``--xla_latency_hiding_scheduler_rerun``.)
 """
 
 from __future__ import annotations
@@ -48,7 +45,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..dynamics.poisson import (AnelasticPoissonSolver,
+from ..dynamics.poisson import (AnelasticPoissonSolver, _einsum,
                                 fourier_tridiagonal_scan)
 from .halo import shard_axes
 
@@ -83,7 +80,7 @@ class PencilPoissonSolver:
         all_to_all split-z/concat-x over "x" → (nz/px,       ny/py, nx)
         all_to_all split-z/concat-y over "y" → (nz/(px·py),  ny,    nx)
         base._forward                        → horizontal mode space
-          (rfft2, MXU matmul-DFT, or the bounded real/DCT eigenbasis —
+          (rfft2, or the real/DCT eigenbasis —
           the horizontals are FULLY gathered here, so every transform the
           dense solver supports works unchanged)
         all_to_all split-my/concat-z over "y", then "x"  → full z columns
@@ -127,9 +124,9 @@ class PencilPoissonSolver:
 
         if base.vertical_solve == "eigen":
             ze = base.z_eig
-            coef = jnp.einsum("mz,zyx->myx", ze["AT"], a_hat)
+            coef = _einsum("mz,zyx->myx", ze["AT"], a_hat)
             coef = coef * ysl(ze["inv_tab"])
-            x = jnp.einsum("zm,myx->zyx", ze["A"], coef)
+            x = _einsum("zm,myx->zyx", ze["A"], coef)
         else:
             mask = ysl(base.zero_mode_mask, axis=0)
             x = fourier_tridiagonal_scan(a_hat, ysl(base.lower),
@@ -160,7 +157,7 @@ def auto_mesh(model, n_devices: int | None = None) -> Mesh | None:
     than one device is visible.
 
     Prefers the 1-D x slab/pencil decomposition (largest halo-free
-    fraction per shard; x is lane-resident in the kernels); falls back to
+    fraction per shard, and x is the contiguous axis); falls back to
     2-D ``('x', 'y')`` when nx alone can't take all devices.  Returns
     ``None`` when no decomposition satisfies the divisibility constraints
     (callers then run single-device/replicated).
@@ -248,16 +245,12 @@ def _localize_terrain(terrain, ny_l: int, nx_l: int, axis_x: str,
 
 
 def make_distributed_step(model, mesh: Mesh | None = None, step_fn=None):
-    """THE blessed multi-device step: shard_map with explicit collectives
-    and the Pallas kernels ACTIVE per shard.
+    """The production multi-device step: shard_map with explicit
+    collectives.
 
     GSPMD (``jit`` + ``NamedSharding``, :mod:`.mesh`) remains available as
-    a compatibility path but is NOT the production one: under multi-device
-    GSPMD ``pallas_call`` has no partitioning rules, so every fused kernel
-    silently drops to the jnp fallback, and the measured virtual
-    weak-scaling curve collapses (``SCALING_gspmd_virtual.json``: 0.025
-    efficiency at 4 devices vs shard_map's 0.59).  Reference equivalence:
-    one decomposition story, ``src/Breeze.jl:208``.
+    a compatibility path; this one makes every exchange explicit.
+    Reference equivalence: one decomposition story, ``src/Breeze.jl:208``.
 
     Returns a jitted ``f(state, dt) -> state`` (``dt`` static), or raises
     if no mesh fits the model's divisibility constraints.
@@ -322,9 +315,8 @@ def make_shard_map_step(model, mesh: Mesh, step_fn=None):
                              is_leaf=lambda x: x is None)
         # dt is closed over (static at the jit level): the steppers treat
         # it as a Python float (acoustic substep counts bake into the
-        # program).  check_vma=False: the body mixes explicit collectives
-        # with pallas_call, whose ShapeDtypeStruct outputs carry no
-        # varying-mesh-axes annotation (the x-prepadded kernel mode).
+        # program).  check_vma=False: the step body is the dense code and
+        # does not annotate which of its values vary over the mesh axes.
         return jax.shard_map(lambda s: local_step(s, dt), mesh=mesh,
                              in_specs=(specs,),
                              out_specs=specs,
@@ -336,11 +328,10 @@ def make_shard_map_step(model, mesh: Mesh, step_fn=None):
 def initialize_distributed(coordinator_address: str | None = None,
                            num_processes: int | None = None,
                            process_id: int | None = None):
-    """Multi-host (DCN) bring-up: ``jax.distributed.initialize`` with
+    """Multi-host bring-up: ``jax.distributed.initialize`` with
     environment fallback (reference `Distributed(arch)` MPI init).
 
-    On single-host deployments this is a no-op.  On multi-host TPU pods the
-    standard TPU environment auto-configures; on other fabrics pass the
+    On single-host deployments this is a no-op.  On several hosts pass the
     coordinator explicitly or set ``BREEZE_TPU_COORDINATOR`` /
     ``BREEZE_TPU_NUM_PROCESSES`` / ``BREEZE_TPU_PROCESS_ID``.
     """

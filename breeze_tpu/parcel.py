@@ -1,6 +1,6 @@
 """0-D Lagrangian parcel model for microphysics prototyping.
 
-TPU-native equivalent of reference ``src/ParcelModels/parcel_dynamics.jl``
+Equivalent of reference ``src/ParcelModels/parcel_dynamics.jl``
 (`ParcelState` :69, `ParcelDynamics` :137, prescribed/prognostic vertical
 velocity :34-45): a single air parcel ascends through a hydrostatic
 environment, conserving θˡⁱ and qᵗ while the embedded microphysics

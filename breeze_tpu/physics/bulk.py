@@ -13,7 +13,7 @@ the same name (``bulk_microphysics.jl:94-105``): its ``rate`` field stores
 the constant relaxation *rate coefficient* 1/τ_relax [1/s] (the reference
 inverts it back into a timescale, ``one_moment_microphysics.jl:496-501``).
 
-TPU shape: the whole-grid update is one fused elementwise pass applied
+Shape: the whole-grid update is one fused elementwise pass applied
 operator-split after RK3 stage 3 (same hook as Kessler/1M); θˡⁱ is
 invariant under the phase changes, so only the moisture categories move
 and T adjusts through the diagnostic relation.

@@ -1,6 +1,6 @@
 """Subgrid-scale turbulence closures: Smagorinsky-Lilly (+ constant diffusivity).
 
-TPU-native equivalent of the reference's closure substrate (Oceananigans
+Equivalent of the reference's closure substrate (Oceananigans
 ``SmagorinskyLilly``; density-weighting wrappers in
 ``src/TurbulenceClosures/TurbulenceClosures.jl:52-101``): the dynamic stress
 is 𝒯 = ρ τ with kinematic τᵢⱼ = −2 νₑ Sᵢⱼ, scalar flux J = −ρ κₑ ∇c; the
@@ -41,7 +41,7 @@ class SmagorinskyLilly:
 class AnisotropicMinimumDissipation:
     """Verstappen/Rozema anisotropic minimum dissipation (AMD) closure.
 
-    TPU analogue of Oceananigans' ``AnisotropicMinimumDissipation``
+    Analogue of Oceananigans' ``AnisotropicMinimumDissipation``
     (reference ``src/Breeze.jl:219`` re-export):
 
         νₑ = C · max(0, −Σₖ Δₖ² (∂ₖuᵢ)(∂ₖuⱼ)Sᵢⱼ) / (∂ₗuₘ ∂ₗuₘ)
@@ -67,7 +67,7 @@ class DynamicSmagorinsky:
         c² = ⟨LᵢⱼMᵢⱼ⟩ / ⟨MᵢⱼMᵢⱼ⟩   (averaged per level),
         νₑ = c² Δ² |S|.
 
-    TPU redesign: everything is collocated at cell centers (one fused VPU
+    Redesign: everything is collocated at cell centers (one fused
     pass); the per-level averaging is a (y,x)-mean — the appropriate
     statistical homogenization for planar-homogeneous LES, clipped at
     c² ≥ 0.  Assumes periodic horizontal topologies for the test filter.
@@ -424,7 +424,7 @@ def implicit_vertical_diffusion_core(g, rho_c, rho_f, nu_c, kappa_c, dt_eff,
                                      new_ru, new_rv, new_rt, new_rq, new_tr):
     """Backward-Euler vertical diffusion via batched tridiagonal solve.
 
-    TPU analogue of the reference's per-field ``implicit_step!`` with
+    Analogue of the reference's per-field ``implicit_step!`` with
     ``VerticallyImplicitTimeDiscretization`` (``ssp_runge_kutta_3.jl:139-160``):
     solve (ρc − Δt ∂z(ρ κ ∂z c))_new = (ρc)_rhs per column, z-walls
     zero-flux.  Removes the vertical diffusive CFL limit on stretched grids.

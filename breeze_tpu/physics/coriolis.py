@@ -1,6 +1,6 @@
 """Coriolis forces on the C-grid.
 
-TPU-native equivalent of the reference's Oceananigans Coriolis types
+Equivalent of the reference's Oceananigans Coriolis types
 (``FPlane``, ``BetaPlane``, ``ConstantCartesianCoriolis``; reference
 ``src/Breeze.jl:217-218``, used in ``dynamics_kernel_functions.jl:3``).
 Each returns the components of ``f × (ρU)`` at the staggered momentum

@@ -1,6 +1,6 @@
 """Forcings: geostrophic pressure gradient, subsidence, sponge layers, custom.
 
-TPU-native equivalent of reference ``src/Forcings/`` (`GeostrophicForcing`
+Equivalent of reference ``src/Forcings/`` (`GeostrophicForcing`
 ``geostrophic_forcings.jl:11-138``, `SubsidenceForcing`
 ``subsidence_forcing.jl:14-137``, upper sponges
 ``time_discretizations.jl:387-507``).  Each forcing is a callable
@@ -71,18 +71,6 @@ class GeostrophicForcing:
         )
         return G
 
-    def column_parts(self, model, state, aux):
-        """Column-linear form for the fused tendency-kernel epilogue
-        (``G_field += add(z) − damp(z)·ρ-field``); every forcing whose
-        stage contribution reduces to per-level columns exposes this so
-        the post-kernel full-field read-modify-write pass disappears."""
-        z = model.grid.z_c_col
-        ug = self.u_g(z) if callable(self.u_g) else self.u_g
-        vg = self.v_g(z) if callable(self.v_g) else self.v_g
-        rho = model.reference.rho_col
-        return {"rho_u": (-rho * self.f * vg + 0.0 * z, None),
-                "rho_v": (rho * self.f * ug + 0.0 * z, None)}
-
 
 @dataclasses.dataclass(frozen=True)
 class SubsidenceForcing:
@@ -90,7 +78,7 @@ class SubsidenceForcing:
 
     The horizontal mean is recomputed every stage (reference
     ``subsidence_forcing.jl:14-137`` recomputes means in
-    ``compute_forcing!``); on TPU this is a cheap per-level reduction
+    ``compute_forcing!``); this is a cheap per-level reduction
     (psum-mean over the mesh when sharded).
     """
 
@@ -119,23 +107,6 @@ class SubsidenceForcing:
             G = _rep(G, rho_qt=G.rho_qt - rho * w_s * dz_mean(aux.qt))
         return G
 
-    def column_parts(self, model, state, aux):
-        g = model.grid
-        w_s = self.w_profile(g.z_c_col)
-        rho = model.reference.rho_col
-        dz_f = g.dz_f_col
-
-        def dz_mean(c):
-            mean = horizontal_mean(c)
-            dm = (mean[1:] - mean[:-1]) / dz_f[1: g.nz]
-            ddz_f = jnp.concatenate([jnp.zeros_like(dm[:1]), dm], 0)
-            return 0.5 * (ddz_f + jnp.concatenate([ddz_f[1:], ddz_f[-1:]], 0))
-
-        parts = {"rho_theta": (-rho * w_s * dz_mean(aux.theta), None)}
-        if aux.qt is not None:
-            parts["rho_qt"] = (-rho * w_s * dz_mean(aux.qt), None)
-        return parts
-
 
 @dataclasses.dataclass(frozen=True)
 class DrySubsidenceTendency:
@@ -150,19 +121,12 @@ class DrySubsidenceTendency:
         rho = model.reference.rho_col
         return _rep(G, rho_qt=G.rho_qt + rho * self.tendency_profile(g.z_c_col))
 
-    def column_parts(self, model, state, aux):
-        if aux.qt is None:
-            return {}
-        g = model.grid
-        rho = model.reference.rho_col
-        return {"rho_qt": (rho * self.tendency_profile(g.z_c_col), None)}
-
 
 @dataclasses.dataclass(frozen=True)
 class UpperSponge:
     """Rayleigh damping toward the reference/horizontal-mean state aloft.
 
-    TPU analogue of the reference's `UpperSponge` with smooth ramps
+    Analogue of the reference's `UpperSponge` with smooth ramps
     (``time_discretizations.jl:387-507``): damping rate
     σ(z) = rate · sin²(π/2 · (z − z₀)/(L)) for z > z₀.
     Momentum damps to zero w and to the horizontal-mean u, v; θ damps to its
@@ -196,26 +160,12 @@ class UpperSponge:
             G = _rep(G,rho_theta=G.rho_theta - sig_c * (state.rho_theta - mean_t))
         return G
 
-    def column_parts(self, model, state, aux):
-        sig_c, sig_f = self._sigma(model)
-        mean_u = horizontal_mean(state.rho_u)
-        mean_v = horizontal_mean(state.rho_v)
-        parts = {
-            "rho_u": (sig_c * mean_u, sig_c),
-            "rho_v": (sig_c * mean_v, sig_c),
-            "rho_w": (None, sig_f),
-        }
-        if self.damp_scalars:
-            mean_t = horizontal_mean(state.rho_theta)
-            parts["rho_theta"] = (sig_c * mean_t, sig_c)
-        return parts
-
 
 @dataclasses.dataclass(frozen=True)
 class OpenBoundaryRelaxation:
     """Flow-relaxation (Davies 1976) open lateral boundaries.
 
-    TPU analogue of the reference's open-boundary relaxation
+    Analogue of the reference's open-boundary relaxation
     (``acoustic_substepping.jl:1279-1356`` open-BC handling;
     ``test/open_boundary_momentum.jl``): prognostic fields in edge zones of
     a bounded horizontal axis relax toward an exterior (typically the
@@ -271,7 +221,7 @@ class OpenBoundaryRelaxation:
 class SpecificForcing:
     """Wrap a per-mass forcing f(x, y, z, t) into a density forcing on a field.
 
-    TPU analogue of reference `SpecificForcing` (``specific_forcing.jl:12-80``).
+    Analogue of reference `SpecificForcing` (``specific_forcing.jl:12-80``).
     ``field`` ∈ {"rho_u", "rho_v", "rho_w", "rho_theta", "rho_qt"}.
     """
 

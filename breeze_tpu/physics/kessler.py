@@ -1,16 +1,16 @@
 """DCMIP2016 Kessler warm-rain microphysics.
 
-TPU-native equivalent of reference ``src/Microphysics/dcmip2016_kessler.jl``
+Equivalent of reference ``src/Microphysics/dcmip2016_kessler.jl``
 (scheme :39-183, terminal velocity :396, production :420, core step :509-567,
 column kernel :615-780).  The published DCMIP2016 Kessler physics
 (Klemp & Wilhelmson 1978 coefficients) in mixing-ratio space.
 
-TPU design departure from the reference: the reference launches one thread
+Design departure from the reference: the reference launches one thread
 per column with sequential k loops and a per-column adaptive sedimentation
 subcycle.  Here everything is vectorized over the full grid — sedimentation
 is an upwind shift along z, the subcycle is a ``lax.fori_loop`` with a
 *global* fixed trip count (computed host-side from Δt and a terminal
-velocity bound), and all process rates are fused VPU arithmetic.
+velocity bound), and all process rates are fused elementwise arithmetic.
 """
 
 from __future__ import annotations
@@ -177,7 +177,7 @@ def kessler_update(scheme: KesslerMicrophysics, model, state, dt: float):
     rv, rcl, rr = _ratios_from_mass_fractions(qv, qcl, qr)
 
     # Global fixed subcycle count from the terminal-velocity bound
-    # (TPU: trace-friendly; reference uses per-column adaptive counts).
+    # (trace-friendly; reference uses per-column adaptive counts).
     dz_min = g.dz_min   # static metadata (jit-safe)
     n_sub = max(1, math.ceil(dt * scheme.max_terminal_velocity
                              / (scheme.substep_cfl * dz_min)))

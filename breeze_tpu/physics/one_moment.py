@@ -1,7 +1,7 @@
 """One-moment 4-category bulk microphysics (cloud liquid / cloud ice / rain /
 snow) with CloudMicrophysics.jl-parity process rates.
 
-TPU-native equivalent of the reference's 1M extension
+Equivalent of the reference's 1M extension
 (``ext/BreezeCloudMicrophysicsExt/one_moment_microphysics.jl:1101-1292``
 mixed-phase tendency bundle + thermodynamics-dependent translations
 ``cloud_microphysics_translations.jl:50-397``).  The reference imports the
@@ -21,7 +21,7 @@ implemented directly, vectorized over the grid:
   melt factor, supersaturation ice→snow autoconversion.
 
 The parameter values are the published CloudMicrophysics.jl defaults (see
-each dataclass).  Structural TPU departure: the reference computes tendencies
+each dataclass).  Structural departure: the reference computes tendencies
 inside the RK loop per-cell; here the scheme is applied operator-split once
 per outer step under a fixed-count ``lax.fori_loop`` sedimentation subcycle
 (same pattern as :mod:`breeze_tpu.physics.kessler`), with forward-Euler

@@ -1,11 +1,11 @@
 """Lagrangian particle tracking.
 
-TPU-native equivalent of the reference's ``LagrangianParticles``
+Equivalent of the reference's ``LagrangianParticles``
 (re-exported ``src/Breeze.jl:220``; stepped by ``step_lagrangian_particles!``
 in both time steppers): particle positions advect with trilinearly
 interpolated staggered velocities (RK2 midpoint), vectorized over all
-particles with ``jax.scipy.ndimage.map_coordinates`` — a gather, which TPU
-executes efficiently for large particle counts.
+particles with ``jax.scipy.ndimage.map_coordinates`` — one gather over
+all particles.
 
 Periodic horizontal axes wrap; particles reflect at the vertical walls.
 """

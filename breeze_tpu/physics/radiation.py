@@ -1,6 +1,6 @@
 """Radiative transfer: gray two-stream longwave + shortwave beam, solar geometry.
 
-TPU-native equivalent of the reference's radiation stack: the
+Equivalent of the reference's radiation stack: the
 scheme-agnostic interface (``src/AtmosphereModels/radiation_interface.jl``),
 gray RRTMGP model (``ext/BreezeRRTMGPExt/gray_radiative_transfer_model.jl:
 66-303``), flux-divergence heating (``rrtmgp_shared_utilities.jl:115-178``),
@@ -8,7 +8,7 @@ and solar position types (``src/AtmosphereModels/solar_position.jl``,
 ``src/CelestialMechanics/solar_zenith_angle.jl:37-156``).
 
 The gray model integrates the two-stream Schwarzschild equations per column
-with ``lax.scan`` over z (columns vectorized across (y, x) on the VPU):
+with ``lax.scan`` over z (columns vectorized across (y, x)):
 
     dF↑/dτ = F↑ − σT⁴,    dF↓/dτ = σT⁴ − F↓
 

@@ -1,13 +1,13 @@
 """Spectral (multi-band) clear-sky and all-sky radiative transfer.
 
-TPU-native counterpart of the reference's RRTMGP extension
+Counterpart of the reference's RRTMGP extension
 (``ext/BreezeRRTMGPExt/clear_sky_radiative_transfer_model.jl:54-289``,
 ``all_sky_radiative_transfer_model.jl:76-330``) and the radiation interface
 (``src/AtmosphereModels/radiation_interface.jl:215-255``: gas
 ``BackgroundAtmosphere`` incl. height-dependent ozone, surface radiative
 properties, update scheduling).
 
-Structural redesign for TPU, documented deviation from the reference: RRTMGP
+Structural redesign, documented deviation from the reference: RRTMGP
 is a data-driven correlated-k code (netCDF lookup tables, 16 g-points/band).
 Here the same *capability surface* is provided by a self-contained
 band model with published-form parameterizations:

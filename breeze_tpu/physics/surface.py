@@ -1,6 +1,6 @@
 """Surface boundary fluxes: prescribed fluxes and bulk formulae.
 
-TPU-native equivalent of reference ``src/BoundaryConditions/`` (BulkDrag
+Equivalent of reference ``src/BoundaryConditions/`` (BulkDrag
 ``bulk_drag.jl:5-181``, bulk sensible-heat/vapor fluxes
 ``bulk_scalar_fluxes.jl:8-302``) and of the flux-BC tendency pathway
 (``compute_flux_bc_tendencies!``, ``update_atmosphere_model_state.jl:418-434``):
@@ -22,7 +22,7 @@ import jax.numpy as jnp
 # ``polynomial_bulk_coefficient.jl:16-556``): Li et al. (2010) non-iterative
 # Riᴮ → ζ mapping + Hogström (1996) / Beljaars & Holtslag (1991) integrated
 # Ψ functions.  All published regression/fit constants.  Everything is
-# branch-free ``jnp.where`` — one VPU pass over the 2-D surface plane.
+# branch-free ``jnp.where`` — one fused pass over the 2-D surface plane.
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)

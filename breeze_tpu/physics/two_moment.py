@@ -1,6 +1,6 @@
 """Two-moment warm-rain microphysics (Seifert & Beheng 2006 family).
 
-TPU-native analogue of the reference's 2M extension
+Analogue of the reference's 2M extension
 (``ext/BreezeCloudMicrophysicsExt/two_moment_microphysics.jl:132-283`` +
 κ-Köhler activation ``cloud_microphysics_translations.jl:592``): prognostic
 cloud/rain mass AND number concentrations, Twomey-type aerosol activation,
@@ -50,7 +50,7 @@ class AerosolMode:
 class AerosolActivation:
     """Abdul-Razzak & Ghan (2000) κ-Köhler aerosol activation.
 
-    TPU translation of the reference's ``AerosolActivation`` +
+    Translation of the reference's ``AerosolActivation`` +
     ``max_supersaturation_breeze`` (``cloud_microphysics_translations.jl:
     592-745``, activation tendencies ``two_moment_microphysics.jl:749-860``):
     per-mode critical supersaturation from κ-Köhler theory, the ARG

@@ -1,6 +1,6 @@
 """Thermodynamic constants and mixture laws for moist air.
 
-TPU-native equivalent of the reference's ``src/Thermodynamics/
+Equivalent of the reference's ``src/Thermodynamics/
 thermodynamics_constants.jl`` (IdealGas :22, CondensedPhase :51,
 ThermodynamicConstants :113, mixture_gas_constant :341,
 mixture_heat_capacity :367, density :383).

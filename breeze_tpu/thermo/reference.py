@@ -1,6 +1,6 @@
 """Hydrostatic reference states.
 
-TPU-native equivalent of reference ``src/Thermodynamics/reference_states.jl``
+Equivalent of reference ``src/Thermodynamics/reference_states.jl``
 (`ReferenceState` :18/:402, adiabatic closed forms :102-123, numerically
 integrated Exner profiles :243-320, discrete balance :847-886).
 
@@ -197,7 +197,7 @@ class ExnerReferenceState:
     """Discretely-balanced reference state for split-explicit compressible
     dynamics.
 
-    TPU-native equivalent of the reference's ``ExnerReferenceState``
+    Equivalent of the reference's ``ExnerReferenceState``
     (``reference_states.jl:480-886``): built so the *discrete* face operator
 
         (p[k] − p[k−1]) / Δzᶠ[k] + g (ρ[k] + ρ[k−1]) / 2  =  0
@@ -348,7 +348,7 @@ def make_boussinesq_reference(grid: Grid, constants: ThermodynamicConstants,
                               standard_pressure: float = 1.0e5) -> ReferenceState:
     """Constant-density (Boussinesq) reference state.
 
-    TPU analogue of the reference's ``MoistAirBuoyancy`` use case
+    Analogue of the reference's ``MoistAirBuoyancy`` use case
     (``src/MoistAirBuoyancies.jl:39-269``: Breeze moist thermodynamics inside
     a constant-density Oceananigans ``NonhydrostaticModel``, exercised by
     ``examples/boussinesq_bomex.jl``): ρᵣ = ρ₀ everywhere, hydrostatic
@@ -446,7 +446,7 @@ def reference_state_from_profiles(grid: Grid, constants: ThermodynamicConstants,
 def set_to_mean(model, state):
     """Rebuild the model's reference state from the current horizontal means.
 
-    TPU analogue of reference ``set_to_mean!`` (``set_to_mean.jl:123,165``):
+    Analogue of reference ``set_to_mean!`` (``set_to_mean.jl:123,165``):
     the reference column re-anchors to ⟨T⟩(z), ⟨qᵛ⟩(z) of the running state
     (a host-side, between-run operation — returns a NEW model; the state's
     density-weighted prognostics are rescaled to the new reference density,

@@ -1,11 +1,11 @@
 """Saturation vapor pressure closures and phase equilibria.
 
-TPU-native equivalent of reference ``src/Thermodynamics/{clausius_clapeyron,
+Equivalent of reference ``src/Thermodynamics/{clausius_clapeyron,
 flatau_polynomial, tetens_formula, vapor_saturation}.jl``.  All functions are
 pointwise jnp expressions — XLA fuses them into the surrounding kernels (the
 reference's motivation for the Flatau fit, avoiding ``^``/``exp`` inside the
-saturation-adjustment iteration, applies on TPU too: Horner evaluation is
-pure VPU work).
+saturation-adjustment iteration, applies here too: Horner evaluation is
+pure multiply-add work).
 """
 
 from __future__ import annotations

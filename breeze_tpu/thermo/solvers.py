@@ -1,6 +1,6 @@
 """Fixed-trip-count scalar solvers for EOS inversions and saturation adjustment.
 
-TPU-native equivalent of reference ``src/Solvers.jl`` (NewtonSolver :61,
+Equivalent of reference ``src/Solvers.jl`` (NewtonSolver :61,
 SecantSolver :92, FixedIterations :134).  The reference notes (:13-19) that
 tolerance ``while``-loops trace to pathological XLA ``while`` adjoints — the
 same constraint applies natively here, so the default is a *fixed* iteration

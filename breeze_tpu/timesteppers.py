@@ -1,6 +1,6 @@
 """Time steppers: SSP-RK3 with per-stage pressure projection.
 
-TPU-native equivalent of reference ``src/TimeSteppers/ssp_runge_kutta_3.jl``
+Equivalent of reference ``src/TimeSteppers/ssp_runge_kutta_3.jl``
 (`SSPRungeKutta3` :53-97, substep kernel :113-172, `time_step!` :208-277).
 The whole step is one pure function ``state -> state`` — under ``jit`` the
 three stages compile into a single XLA program (the reference needs Reactant
@@ -27,13 +27,19 @@ def ssp_rk3_step(model: M.AtmosphereModel, state: M.State, dt) -> M.State:
     vertically-implicit closure is configured) → diagnostics refresh (fused
     into the next stage's tendency computation).  Operator-split
     microphysics (`microphysics_model_update!`) runs once after stage 3.
+
+    Each layer runs under a ``jax.named_scope`` (``negative_moisture``,
+    ``diagnose``, ``tendencies``, ``implicit_vertical``,
+    ``pressure_projection``, ``microphysics``) so a profiler trace can
+    attribute device time to it.
     """
     # Negative-moisture repair at step start (reference fix_negative_moisture!,
     # update_atmosphere_model_state.jl:42): species borrowing + Δz-weighted
     # vertical borrowing + number-concentration cleanup.
     if state.rho_qt is not None:
         from .physics.microphysics import apply_negative_moisture_correction
-        state = apply_negative_moisture_correction(model, state)
+        with jax.named_scope("negative_moisture"):
+            state = apply_negative_moisture_correction(model, state)
 
     # Filtered bulk-flux matching state: one exponential-filter update per
     # outer step (reference update_filtered_surface_state!).
@@ -58,11 +64,11 @@ def ssp_rk3_step(model: M.AtmosphereModel, state: M.State, dt) -> M.State:
     # between solves; see SaturationAdjustment.warm_iterations).
     prev_T = state.diagnostics.get("T_warm")
     for alpha in SSP_RK3_ALPHAS:
-        aux = M.diagnose(model, state, T_guess=prev_T)
+        with jax.named_scope("diagnose"):
+            aux = M.diagnose(model, state, T_guess=prev_T)
         prev_T = aux.T
-        # Fused stage blend: on the Pallas path the substep happens in the
-        # tendency mega-kernel epilogue (see model.stage_update).
-        ns = M.stage_update(model, state, state0, dt, alpha, aux=aux)
+        with jax.named_scope("tendencies"):
+            ns = M.stage_update(model, state, state0, dt, alpha, aux=aux)
         new_ru, new_rv, new_rw = ns.rho_u, ns.rho_v, ns.rho_w
         new_rt, new_rq, new_tr = ns.rho_theta, ns.rho_qt, ns.tracers
 
@@ -72,12 +78,15 @@ def ssp_rk3_step(model: M.AtmosphereModel, state: M.State, dt) -> M.State:
             # (reference implicit_step!, ssp_runge_kutta_3.jl:139-160 +
             # implicit_vertical_advection.jl:78-230).
             from .dynamics.vertical_implicit import implicit_vertical_step
-            new_ru, new_rv, new_rw, new_rt, new_rq, new_tr = implicit_vertical_step(
-                model, state, aux, new_ru, new_rv, new_rw, new_rt, new_rq,
-                new_tr, alpha * dt, dt)
+            with jax.named_scope("implicit_vertical"):
+                (new_ru, new_rv, new_rw, new_rt, new_rq,
+                 new_tr) = implicit_vertical_step(
+                    model, state, aux, new_ru, new_rv, new_rw, new_rt,
+                    new_rq, new_tr, alpha * dt, dt)
 
-        new_ru, new_rv, new_rw, _ = M.pressure_projection(
-            model, new_ru, new_rv, new_rw, alpha * dt)
+        with jax.named_scope("pressure_projection"):
+            new_ru, new_rv, new_rw, _ = M.pressure_projection(
+                model, new_ru, new_rv, new_rw, alpha * dt)
 
         state = state.replace(
             rho_u=new_ru, rho_v=new_rv, rho_w=new_rw,
@@ -86,7 +95,8 @@ def ssp_rk3_step(model: M.AtmosphereModel, state: M.State, dt) -> M.State:
     # Operator-split microphysics once per step (reference :272; a no-op for
     # the tendency-/adjustment-interface schemes currently implemented).
     if model.microphysics is not None and hasattr(model.microphysics, "model_update"):
-        state = model.microphysics.model_update(model, state, dt)
+        with jax.named_scope("microphysics"):
+            state = model.microphysics.model_update(model, state, dt)
 
     if prev_T is not None and "T_warm" in state.diagnostics:
         # stage-3 T becomes the next step's stage-1 warm start
@@ -100,7 +110,7 @@ def ssp_rk3_step(model: M.AtmosphereModel, state: M.State, dt) -> M.State:
 def many_steps(model: M.AtmosphereModel, state: M.State, dt, n_steps: int) -> M.State:
     """Compile ``n_steps`` into one XLA program via ``lax.fori_loop``.
 
-    TPU analogue of the reference benchmark harness's traced step loop
+    Analogue of the reference benchmark harness's traced step loop
     (``benchmarking/src/timestepping.jl:11-31``).
     """
     def body(_, s):

@@ -15,6 +15,7 @@ only), so these tests pin the completed breeze_tpu design:
   under ρe.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,7 +23,7 @@ import pytest
 import breeze_tpu as bz
 from breeze_tpu.dynamics.compressible import (
     SplitExplicitTimeDiscretization,
-    acoustic_rk3_step,
+    acoustic_rk3_step as _acoustic_rk3_step,
     compressible_diagnose,
     compressible_initial_state,
     make_compressible_model,
@@ -30,6 +31,22 @@ from breeze_tpu.dynamics.compressible import (
     stage_caches,
 )
 from breeze_tpu.thermo.constants import ThermodynamicConstants
+
+
+# One compiled program per model and step size, as in
+# ``test_compressible.py``: an eager ``acoustic_rk3_step`` would compile its
+# loop afresh on every call.
+acoustic_rk3_step = jax.jit(_acoustic_rk3_step,
+                            static_argnames=("dt", "substeps"))
+
+
+@pytest.fixture
+def op_by_op():
+    """Step op by op, loops included: the rest-state contracts hold 1e-10,
+    which a compiled step's FMA contraction drifts past (see
+    ``test_compressible.op_by_op``)."""
+    with jax.disable_jit():
+        yield
 
 
 def comp_grid(nx=32, nz=24, lx=20_000.0, lz=10_000.0, dtype=jnp.float64):
@@ -41,6 +58,7 @@ def comp_grid(nx=32, nz=24, lx=20_000.0, lz=10_000.0, dtype=jnp.float64):
 CONST = ThermodynamicConstants()
 
 
+@pytest.mark.usefixtures("op_by_op")
 class TestRestState:
     def test_rest_atmosphere_stays_at_rest(self):
         """T4 under ρe: |w| stays at near-machine zero over 20 outer steps.

@@ -1,4 +1,4 @@
-"""DCMIP2016 Kessler pinning: the vectorized TPU scheme against an
+"""DCMIP2016 Kessler pinning: the vectorized JAX scheme against an
 independent sequential NumPy column implementation of the published
 Klemp & Wilhelmson (1978) / DCMIP2016 algorithm (kessler.f90,
 DOI 10.5281/zenodo.1298671), adapted to θˡⁱ thermodynamics the same way the

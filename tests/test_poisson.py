@@ -8,6 +8,7 @@ solver recovers φ; plus a projection contract: after projection,
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 import breeze_tpu as bz
 from breeze_tpu import fields as fl
@@ -125,25 +126,13 @@ class TestProjection:
 
 
 class TestMatmulDFT:
-    def test_matmul_dft_matches_fft_solver(self):
-        """The MXU DFT path must agree with the library-FFT path."""
-        g, rho_c, rho_f = make_case()
-        s_fft = build_anelastic_poisson_solver(g, rho_c, rho_f, use_matmul_dft=False)
-        s_mm = build_anelastic_poisson_solver(g, rho_c, rho_f, use_matmul_dft=True)
-        rng = np.random.default_rng(3)
-        rhs = jnp.asarray(rng.normal(size=g.shape))
-        rhs = rhs - rhs.mean()
-        p1 = np.array(s_fft.solve(rhs, 0.5))
-        p2 = np.array(s_mm.solve(rhs, 0.5))
-        p1 -= p1.mean()
-        p2 -= p2.mean()
-        np.testing.assert_allclose(p2, p1, atol=1e-10)
+    """The matrix-product (real eigenbasis) transform against rfft2."""
 
     def test_periodic_real_eigenbasis_matches_fft_solver(self):
-        """The all-real periodic eigenbasis (TPU default) == library FFT."""
+        """The all-real periodic eigenbasis == library FFT."""
         g, rho_c, rho_f = make_case()
         s_fft = build_anelastic_poisson_solver(g, rho_c, rho_f,
-                                               use_matmul_dft=False)
+                                               transform="fourier")
         s_real = build_anelastic_poisson_solver(g, rho_c, rho_f,
                                                 transform="real")
         assert s_real.transform == "real" and s_real.nxr == g.nx
@@ -156,16 +145,16 @@ class TestMatmulDFT:
         p2 -= p2.mean()
         np.testing.assert_allclose(p2, p1, atol=1e-10)
 
-    def test_matmul_projection_kills_divergence(self):
-        from breeze_tpu.model import make_model, pressure_projection
-        from breeze_tpu.dynamics.poisson import build_anelastic_poisson_solver
+    @pytest.mark.parametrize("vertical", ["scan", "eigen"])
+    def test_matmul_projection_kills_divergence(self, vertical):
         import dataclasses as dc
         g = bz.make_grid(size=(16, 12, 20), extent=(2000.0, 1500.0, 1000.0),
                          topology=(bz.PERIODIC, bz.PERIODIC, bz.BOUNDED),
                          dtype=jnp.float64)
         model = make_model(g, potential_temperature=300.0)
         solver_mm = build_anelastic_poisson_solver(
-            g, model.reference.rho_c, model.reference.rho_f, use_matmul_dft=True)
+            g, model.reference.rho_c, model.reference.rho_f, transform="real",
+            vertical_solve=vertical)
         model = dc.replace(model, solver=solver_mm)
         rng = np.random.default_rng(9)
         ru = jnp.asarray(rng.normal(size=g.shape))
@@ -268,7 +257,7 @@ class TestBoundedPoisson:
 
 
 class TestVerticalEigenSolve:
-    """The MXU z-eigenbasis vertical solve (vertical_solve='eigen') against
+    """The matmul z-eigenbasis vertical solve (vertical_solve='eigen') against
     the Thomas scan: same projection, machine-exact in f64."""
 
     def _grid_model(self, dtype):
@@ -325,3 +314,45 @@ class TestVerticalEigenSolve:
             assert float(jnp.abs(dd).max()) < 5e-7, vs
             u3, v3, w3, _ = M.pressure_projection(mm, u2, v2, w2, 1.0)
             assert float(jnp.abs(u3 - u2).max()) < 5e-6, vs
+
+
+class TestProjectionResidual:
+    """The float32 projection reaches the float64 one's accuracy, measured
+    in each precision's own unit roundoff ε: the divergence residual
+    (``diagnostics.divergence_residual``) is at most FACTOR·ε in both, and
+    the float32 residual in units of ε32 is within FACTOR of the float64
+    one in units of ε64.  A float32 matrix product taken in TF32 (2⁻¹¹)
+    would leave ~1e4·ε32 and fail.  ``chip_smoke.py`` prints the same
+    check from the GPU at 256³."""
+
+    FACTOR = 100.0
+
+    @pytest.mark.parametrize("transform,vertical", [
+        ("fourier", "scan"), ("real", "scan"), ("real", "eigen")])
+    def test_float32_reaches_float64_residual(self, transform, vertical):
+        import dataclasses
+
+        from breeze_tpu.diagnostics import divergence_residual
+        units = {}
+        for dtype in (jnp.float32, jnp.float64):
+            g = bz.make_grid(size=(32, 24, 32),
+                             extent=(6400.0, 4800.0, 3000.0),
+                             topology=(bz.PERIODIC, bz.PERIODIC, bz.BOUNDED),
+                             dtype=dtype)
+            model = make_model(g, potential_temperature=300.0)
+            model = dataclasses.replace(
+                model, solver=build_anelastic_poisson_solver(
+                    g, model.reference.rho_c, model.reference.rho_f,
+                    transform=transform, vertical_solve=vertical))
+            rng = np.random.default_rng(0)
+            ru, rv, rw = (jnp.asarray(rng.normal(size=g.shape), dtype)
+                          for _ in range(3))
+            ru, rv, rw, _ = pressure_projection(model, ru, rv, rw, 1.0)
+            state = initial_state(model).replace(rho_u=ru, rho_v=rv,
+                                                 rho_w=rw)
+            units[dtype] = (divergence_residual(model, state)
+                            / np.finfo(dtype).eps)
+        assert units[jnp.float64] <= self.FACTOR, units
+        assert units[jnp.float32] <= self.FACTOR, units
+        assert units[jnp.float32] <= self.FACTOR * max(units[jnp.float64],
+                                                       1.0), units

@@ -2,7 +2,7 @@
 
 Reference: ``src/AtmosphereModels/implicit_vertical_advection.jl:78-230``
 (adaptive explicit/implicit split removing the vertical advective CFL
-limit).  TPU design: CFL-scaled explicit fluxes + a fused upwind/diffusion
+limit).  Design: CFL-scaled explicit fluxes + a fused upwind/diffusion
 tridiagonal solve (``breeze_tpu/dynamics/vertical_implicit.py``).
 """
 

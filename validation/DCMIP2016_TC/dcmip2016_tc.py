@@ -14,7 +14,7 @@ fluxes over a fixed SST = 302.15 K, with the complete Reed–Jablonowski
   3. large-scale condensation with instantaneous rain-out
      (``InstantaneousPrecipitation``).
 
-TPU-native counterpart of the reference validation study
+Counterpart of the reference validation study
 ``validation/DCMIP2016_TC/dcmip2016_tc.jl`` (the vortex equations below are
 the published RJ 2011 test definition, Eqs. 1–23). Expected minimum sea-level
 pressure over 10 days, from the reference's own table:
@@ -25,7 +25,7 @@ pressure over 10 days, from the reference's own table:
   | 0.25°      | 937.6 hPa  | 921.4 hPa  |
 
 Usage:
-  python dcmip2016_tc.py                    # 0.5° WENO9, 10 days (TPU, hours)
+  python dcmip2016_tc.py                    # 0.5° WENO9, 10 days (GPU, long run)
   python dcmip2016_tc.py --resolution 0.25  # best configuration
   python dcmip2016_tc.py --smoke            # 4° + 1 h: build/step check (CPU ok)
 """

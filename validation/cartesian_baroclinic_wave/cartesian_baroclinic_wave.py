@@ -18,7 +18,7 @@ growth by day 8, deep surface lows (Δp of tens of hPa) and sharpening
 fronts by days 10-15, peak jet ≈ 30 m/s near η ≈ 0.24.
 
 Usage:
-  python cartesian_baroclinic_wave.py            # 100 km grid, 15 days (TPU)
+  python cartesian_baroclinic_wave.py            # 100 km grid, 15 days (GPU)
   python cartesian_baroclinic_wave.py --days 10
   python cartesian_baroclinic_wave.py --smoke    # coarse + 6 h (CPU ok)
 """
